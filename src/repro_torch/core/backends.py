@@ -1,0 +1,96 @@
+"""Compute-backend registry for the distance/barycenter primitives.
+
+The coalition engine needs three base primitives:
+
+  ``pairwise_sq_dists(w) -> (N, N)``        — §III.A distance matrix
+  ``sq_dists_to_points(w, p) -> (N, K)``    — assignment + medoid distances
+  ``segment_sum(onehot, w) -> (K, D)``      — §III.B barycenter reduction
+
+plus one optional fused primitive, ``fused_round(w, center_idx, *,
+client_weights=None) -> FusedStats``: Algorithm 1's server step as two
+streaming passes over W (:mod:`repro_torch.core.fused`).  A backend that
+omits it is served by the generic composition of the three base primitives.
+
+Registered backends:
+
+  ``stream`` — diff-form chunked stream in plain PyTorch (the counterpart of
+               the reference's ``xla``); registered by ``distance.py``.
+  ``dot``    — Gram form (the counterpart of ``dot``); ``distance.py``.
+  ``cuda``   — the counterpart of ``pallas``: its ``fused_round`` runs the two
+               hand-written kernels of :mod:`repro_torch.kernels.fused_round`
+               (their plain versions for CPU tensors).  Its three base
+               primitives are the kernels of ROADMAP queue B that later slices
+               port, and raise until then.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Callable, NamedTuple
+
+import torch
+
+if TYPE_CHECKING:   # runtime import would cycle (fused.py imports backends)
+    from repro_torch.core.fused import FusedStats
+
+
+class Backend(NamedTuple):
+    """One implementation of the coalition-engine primitives."""
+
+    name: str
+    pairwise_sq_dists: Callable[..., torch.Tensor]
+    sq_dists_to_points: Callable[..., torch.Tensor]
+    segment_sum: Callable[..., torch.Tensor]
+    #: optional two-pass fused round; None = the generic composition
+    fused_round: Callable[..., "FusedStats"] | None = None
+
+
+_BACKENDS: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    """Register (or override) a backend under ``backend.name``."""
+    _BACKENDS[backend.name] = backend
+    return backend
+
+
+def get_backend(backend: str | Backend) -> Backend:
+    """Resolve a backend name (or pass a :class:`Backend` through)."""
+    if isinstance(backend, Backend):
+        return backend
+    try:
+        return _BACKENDS[backend]
+    except KeyError:
+        raise KeyError(
+            f"unknown backend {backend!r}; available: {available_backends()}"
+        ) from None
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
+def _not_ported(kernel: str, item: str) -> Callable[..., torch.Tensor]:
+    def primitive(*args, **kwargs):
+        raise NotImplementedError(
+            f"the 'cuda' backend's {kernel} is the TPU kernel {kernel} that "
+            f"ROADMAP queue B item {item} ports in a later slice; use backend "
+            f"'stream' or 'dot', or the fused round")
+
+    return primitive
+
+
+def _register_cuda() -> None:
+    def _fused_round(w, center_idx, *, client_weights=None):
+        from repro_torch.core import fused as fz
+
+        return fz.fused_round_cuda(w, center_idx,
+                                   client_weights=client_weights)
+
+    register_backend(Backend(
+        name="cuda",
+        pairwise_sq_dists=_not_ported("pairwise_sq_dists", "B.5"),
+        sq_dists_to_points=_not_ported("sq_dists_to_points", "B.3"),
+        segment_sum=_not_ported("segment_sum", "B.4"),
+        fused_round=_fused_round))
+
+
+_register_cuda()

@@ -18,6 +18,9 @@ def pytest_configure(config):
         "markers",
         "adversarial: byzantine-attack / DP scenario tests "
         "(tests/test_attacks.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips without one (tests/test_torch_cuda.py)")
 
 
 @pytest.fixture(autouse=True)

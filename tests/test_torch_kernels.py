@@ -1,0 +1,138 @@
+"""The port's fused-round kernels against the reference's.
+
+On the CPU the port runs each kernel's plain PyTorch version; they are held
+to the reference's Pallas kernels (interpret mode, as tests/test_kernels.py
+runs them) and to ``repro.kernels.ref`` on the same numpy inputs, with the
+bounds of tests/test_kernels.py: 5e-6 of the max for f32, 5e-3 for bf16.
+The CUDA kernels themselves are held to the plain versions by
+tests/test_torch_cuda.py, which runs on a card and skips without one.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused_round as jfr
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import fused_round as tfr
+from repro_torch.kernels import ref as tref
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL = {"float32": 5e-6, "bfloat16": 5e-3}
+SWEEP = [(10, 3, 1000, "float32"), (7, 2, 4097, "float32"),
+         (16, 4, 8192, "float32"), (10, 3, 5000, "bfloat16")]
+
+
+def _inputs(n, k, d, dtype, seed=0):
+    """W (N, D) as numpy (f32, or bf16 values held in f32), the (K, N)
+    center one-hot and a normalised (K, N) aggregation matrix."""
+    rng = np.random.default_rng(seed + n * d)
+    w = rng.standard_normal((n, d)).astype(np.float32)
+    if dtype == "bfloat16":
+        w = w.astype(ml_dtypes.bfloat16).astype(np.float32)
+    conehot = np.eye(n, dtype=np.float32)[rng.permutation(n)[:k]]
+    m = np.eye(k, dtype=np.float32)[rng.integers(0, k, n)].T
+    m = m / np.maximum(m.sum(1, keepdims=True), 1.0)
+    return w, conehot, m.astype(np.float32)
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                 else jnp.float32)
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max() + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("n,k,d,dtype", SWEEP)
+def test_plain_center_sq_dists_matches_reference(n, k, d, dtype):
+    w, conehot, _ = _inputs(n, k, d, dtype)
+    got = ops.center_sq_dists(_torch(w, dtype), torch.from_numpy(conehot))
+    kern = jfr.center_sq_dists(_jax(w, dtype), jnp.asarray(conehot),
+                               block_d=2048, interpret=True)
+    _close(got, kern, TOL[dtype])
+    _close(got, jref.center_sq_dists(_jax(w, dtype), jnp.asarray(conehot)),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("n,k,d,dtype", SWEEP)
+def test_plain_fused_coalition_stats_matches_reference(n, k, d, dtype):
+    w, _, m = _inputs(n, k, d, dtype)
+    got = ops.fused_coalition_stats(_torch(w, dtype), torch.from_numpy(m))
+    kern = jfr.fused_coalition_stats(_jax(w, dtype), jnp.asarray(m),
+                                     block_d=2048, interpret=True)
+    oracle = jref.fused_coalition_stats(_jax(w, dtype), jnp.asarray(m))
+    for want in (kern, oracle):
+        for g, r in zip(got, want):
+            _close(g, r, TOL[dtype])
+
+
+@pytest.mark.parametrize("n,k,d", [(10, 3, 1000), (7, 2, 129), (16, 8, 8192)])
+def test_plain_sq_dists_to_points_matches_reference(n, k, d):
+    rng = np.random.default_rng(d)
+    w = rng.standard_normal((n, d)).astype(np.float32)
+    p = rng.standard_normal((k, d)).astype(np.float32)
+    got = tref.sq_dists_to_points(torch.from_numpy(w), torch.from_numpy(p))
+    _close(got, jref.sq_dists_to_points(jnp.asarray(w), jnp.asarray(p)),
+           TOL["float32"])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """ops sends CPU tensors to the plain version: no kernel launch."""
+    w, conehot, m = _inputs(6, 2, 300, "float32")
+    before = dict(tfr.LAUNCHES)
+    ops.center_sq_dists(torch.from_numpy(w), torch.from_numpy(conehot))
+    ops.fused_coalition_stats(torch.from_numpy(w), torch.from_numpy(m))
+    assert tfr.LAUNCHES == before
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises; it never computes on CPU."""
+    w, conehot, m = _inputs(6, 2, 300, "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfr.center_sq_dists(torch.from_numpy(w), torch.from_numpy(conehot))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfr.fused_coalition_stats(torch.from_numpy(w), torch.from_numpy(m))
+
+
+def test_library_names_follow_source_and_flags():
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR
+    assert path == build.library_path()
+    assert (build.HERE / build.SOURCE).exists()
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Importing every module of the port, and chip_smoke.py, leaves jax and
+    repro out of sys.modules."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "repro_torch.launch.train" in modules
