@@ -6,26 +6,47 @@
 In order, it
   1. prints the card (``nvidia-smi`` name and power limit) and the torch and
      nvcc versions;
-  2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-     and prints the build time and the ptxas report;
-  3. holds each kernel against its plain PyTorch version on the card at the
-     main path's shape (N = 10, K = 3, D = 582,026, f32), at a ragged shape
-     with larger N and K, and at a small bf16 shape: the max error must stay
-     within 5e-6 of the max for both dtypes (kernel and plain version upcast
-     the same bf16 values to f32), and the launch counters must move; the whole fused round on the ``cuda`` backend is held
-     against the ``stream`` backend too;
-  4. times each kernel at the main path's shape with CUDA events after a
+  2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+     per source, each its own library, all started together) and prints the build
+     time and the ptxas report;
+  3. holds each kernel against its plain PyTorch version on the card: the
+     fused-round kernels at the main path's shape (N = 10, K = 3,
+     D = 582,026, f32), at a ragged shape with larger N and K, and at a
+     small bf16 shape; the distance and segment-sum kernels at those shapes
+     and at the sketch widths D = S in {64, 256, 1024}, ``pairwise_sq_dists``
+     with its diagonal exactly 0.  The max error must stay within 5e-6 of
+     the max for both dtypes (kernel and plain version upcast the same bf16
+     values to f32), and the launch counters must move;
+  4. holds whole rounds on the ``cuda`` backend against the ``stream``
+     backend at the main width: the fused round, the composed round and the
+     sketched round (rproj and countsketch, S = 256): equal assignments and
+     centers, θ within 5e-6 of its max;
+  5. times each kernel at the main path's shapes with CUDA events after a
      warm-up, with the 50 MB L2 cache flushed before every launch, beside
-     its bound, its plain version and (pass 1) ``torch.cdist``, and the
+     its bound, its plain version and a one-call library yardstick, and the
      host time a wrapper call takes to enqueue;
-  5. runs ``repro_torch.launch.train --mode fl`` at its defaults with
+  6. runs ``repro_torch.launch.train --mode fl`` at its defaults with
      ``--rounds 3`` on the card, with the launch counters set to 0 just
-     before: each kernel must have launched once per server step (= rounds),
-     and the final test accuracy must be finite and above chance (0.1);
-  6. traces one round of the main path's shape with torch.profiler and
+     before: each fused-round kernel must have launched once per server step
+     (= rounds), no other kernel at all, and the final test accuracy must be
+     finite and above chance (0.1);
+  7. runs the sketch path, ``train --mode fl --method coalition_topk
+     --sketch rproj --sketch-dim 256`` at its defaults for 2 rounds, counters
+     set to 0 just before: ``sq_dists_to_points`` twice and ``segment_sum``
+     once per server step, the fused-round kernels never, accuracy > 0.1;
+     then ``distance.pairwise_sq_dists(W, backend="cuda")`` on that run's
+     last client matrix, counters set to 0 just before, held to its plain
+     version;
+  8. the framework-scale phase (N = 10, K = 3, D = 8,000,000 f32, three
+     clusters): the exact geometry against countsketch + ``sketch_stage`` at
+     S in {64, 256, 1024}, timed with CUDA events, with the agreement of the
+     assignments (at least 0.95 at S = 1024) and the sketched round's W
+     passes (2); the segment sum and the sketch builds timed at this D and
+     at the main path's;
+  9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
-  7. prints the card again, one JSON line with every kernel's numbers, and
-     last ``{"ok": true, "device": {...}}``.
+  10. prints the card again, one JSON line with every kernel's numbers, and
+      last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 before any
 result.  It imports nothing of JAX and nothing of the ``repro`` package.
@@ -51,13 +72,32 @@ CHECKS = ((10, 3, 582_026, "float32"), (64, 8, 1_000_003, "float32"),
 #: from the same inputs, so bf16 W is held to the f32 bound too
 TOL = 5e-6
 ROUNDS = 3
+#: server steps of the sketch path's run
+SKETCH_ROUNDS = 2
+SKETCH_ARGS = ["--mode", "fl", "--method", "coalition_topk", "--sketch",
+               "rproj", "--sketch-dim", "256"]
+#: the distance and segment-sum kernels' checks: (N, K, D, dtype name)
+DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 64, "float32"),
+               (10, 3, 256, "float32"), (10, 3, 1024, "float32"),
+               (64, 8, 1_000_003, "float32"), (16, 4, 70_001, "bfloat16"))
+#: the sketch width of the sketch path, and the framework-scale D
+SKETCH_DIM = 256
+BIG_D = 8_000_000
 #: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 #: fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 REPLACES = {"center_sq_dists": "src/repro/kernels/fused_round.py:52",
-            "fused_coalition_stats": "src/repro/kernels/fused_round.py:100"}
-SOURCE = "src/repro_torch/kernels/csrc/fused_round.cu"
+            "fused_coalition_stats": "src/repro/kernels/fused_round.py:100",
+            "pairwise_sq_dists": "src/repro/kernels/pairwise_dist.py:42",
+            "sq_dists_to_points": "src/repro/kernels/pairwise_dist.py:86",
+            "segment_sum": "src/repro/kernels/segment_mean.py:26"}
+_CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"center_sq_dists": _CSRC + "fused_round.cu",
+           "fused_coalition_stats": _CSRC + "fused_round.cu",
+           "pairwise_sq_dists": _CSRC + "pairwise_dist.cu",
+           "sq_dists_to_points": _CSRC + "pairwise_dist.cu",
+           "segment_sum": _CSRC + "segment_mean.cu"}
 
 
 def card_line() -> str:
@@ -131,25 +171,90 @@ def check_kernels() -> dict:
     return errs
 
 
-def check_round() -> None:
-    """The whole fused round on the cuda backend against the stream one."""
+def check_dist_kernels() -> dict:
+    """Phase 3, the distance and segment-sum kernels against their plain
+    versions; returns the max abs errors by (kernel, N, K, D)."""
     import torch
 
-    from repro_torch.core import coalitions
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_mean as sm
+
+    errs = {}
+    for n, k, d, dname in DIST_CHECKS:
+        dtype = getattr(torch, dname)
+        w, _, m = inputs(n, k, d, dtype, seed=2)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        p = torch.randn((k, d), generator=g, device="cuda").to(dtype)
+        before = {**pd.LAUNCHES, **sm.LAUNCHES}
+        got = {"sq_dists_to_points": pd.sq_dists_to_points(w, p),
+               "segment_sum": sm.segment_sum(m, w),
+               "pairwise_sq_dists": pd.pairwise_sq_dists(w)}
+        torch.cuda.synchronize()
+        after = {**pd.LAUNCHES, **sm.LAUNCHES}
+        want = {"sq_dists_to_points": ref.sq_dists_to_points(w, p),
+                "segment_sum": ref.segment_sum(m, w),
+                "pairwise_sq_dists": ref.pairwise_sq_dists(w)}
+        for name in got:
+            err, rel = rel_err(got[name], want[name])
+            moved = after[name] - before[name]
+            print(f"check {name} N={n} K={k} D={d} {dname}: max abs err "
+                  f"{err:.3e}, / max {rel:.3e} (bound {TOL:.0e}), launches "
+                  f"+{moved}")
+            if not rel <= TOL:
+                fail(f"{name} disagrees with its plain version at N={n} "
+                     f"K={k} D={d} {dname}")
+            if moved != 1:
+                fail(f"{name}'s launch counter moved by {moved}, not 1")
+            errs[(name, n, k, d)] = err
+        pw = got["pairwise_sq_dists"]
+        if not (torch.all(torch.diagonal(pw) == 0) and torch.equal(pw, pw.T)
+                and torch.all(pw >= 0) and torch.all(
+                    got["sq_dists_to_points"] >= 0)):
+            fail(f"pairwise_sq_dists at N={n} D={d}: diagonal not exactly 0, "
+                 f"not symmetric, or a distance below 0")
+        del w, p, m, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_rounds() -> None:
+    """Phase 4: whole rounds on the cuda backend against the stream one at
+    the main width: fused, composed, and sketched (rproj, countsketch)."""
+    import torch
+
+    from repro_torch.core import coalitions, sketch
+    from repro_torch.kernels import ops
 
     n, k, d = MAIN
     w, _, _ = inputs(n, k, d, torch.float32, seed=1)
     w += 5.0 * (torch.arange(n, device="cuda") % k)[:, None]  # separated
     state = coalitions.init_centers(w, k, perm=torch.arange(n))
-    rc = coalitions.run_round(w, state, backend="cuda")
-    rs = coalitions.run_round(w, state, backend="stream")
-    same = (torch.equal(rc.assignment, rs.assignment)
-            and torch.equal(rc.new_center_idx, rs.new_center_idx))
-    _, theta_err = rel_err(rc.theta, rs.theta)
-    print(f"round cuda vs stream: assignment and centers equal: {same}, "
-          f"theta err / max {theta_err:.3e}")
-    if not same or not theta_err <= TOL * 10:
-        fail("the cuda backend's round disagrees with the stream backend's")
+    variants = [("fused", {}, {"center_sq_dists": 1,
+                               "fused_coalition_stats": 1}),
+                ("composed", {"fused": False}, {"sq_dists_to_points": 2,
+                                                "segment_sum": 1})]
+    variants += [(f"sketched {name} S={SKETCH_DIM}",
+                  {"sketcher": sketch.make_sketcher(name, dim=SKETCH_DIM)},
+                  {"sq_dists_to_points": 2, "segment_sum": 1})
+                 for name in ("rproj", "countsketch")]
+    for label, kw, launches in variants:
+        before = ops.launch_counts()
+        rc = coalitions.run_round(w, state, backend="cuda", **kw)
+        torch.cuda.synchronize()
+        moved = {name: c - before[name]
+                 for name, c in ops.launch_counts().items() if c != before[name]}
+        rs = coalitions.run_round(w, state, backend="stream", **kw)
+        same = (torch.equal(rc.assignment, rs.assignment)
+                and torch.equal(rc.new_center_idx, rs.new_center_idx))
+        _, theta_err = rel_err(rc.theta, rs.theta)
+        print(f"round {label} cuda vs stream: assignment and centers equal: "
+              f"{same}, theta err / max {theta_err:.3e}, launches {moved}")
+        if not same or not theta_err <= TOL:
+            fail(f"the cuda backend's {label} round disagrees with the "
+                 f"stream backend's")
+        if moved != launches:
+            fail(f"the {label} round launched {moved}, expected {launches}")
 
 
 def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -189,73 +294,283 @@ def host_us(fn, reps: int = 200) -> float:
     return (t1 - t0) / reps * 1e6
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: bytes over the memory rate
+    or fp32 operations over the fp32 peak, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def timed_row(label: str, kernel, plain, library, nbytes: float,
+              ops: float) -> dict:
+    """Time a kernel, its plain version and its library yardstick (None if
+    there is none) on the card; print them beside the bound."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "library_ms": None if library is None else time_ms(library),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    enqueue = host_us(kernel)
+    lib = row["library_ms"]
+    print(f"time {label}, L2 flushed: kernel {row['ms']:.4f} ms "
+          f"({nbytes / row['ms'] / 1e6:.1f} GB/s), plain "
+          f"{row['plain_ms']:.4f} ms, library "
+          f"{'-' if lib is None else f'{lib:.4f}'} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); wrapper host time "
+          f"{enqueue:.1f} us")
+    return row
+
+
 def time_kernels() -> dict:
-    """Phase 4: kernel, plain and library times with bounds, main shape."""
+    """Phase 5: kernel, plain and library times with bounds at the main
+    path's shapes: the main width for all five kernels (the library
+    yardsticks: torch.cdist, squared where the kernel squares, and cuBLAS's
+    mix @ W), and sq_dists_to_points on the sketch path's (N, S) sketch too,
+    with a one-element fill as the launch floor.  Returns the rows of the
+    kernels line: sq_dists_to_points at the sketch path's shape."""
     import torch
 
     from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_mean as sm
 
     n, k, d = MAIN
     w, conehot, m = inputs(n, k, d, torch.float32)
     centers = (conehot @ w).contiguous()
+    s = SKETCH_DIM
+    s_w = torch.randn((n, s), device="cuda")
+    s_p = s_w[:k].contiguous()
     wb = n * d * 4
-    calls = {
-        "center_sq_dists": (lambda: fr.center_sq_dists(w, conehot),
-                            lambda: ref.center_sq_dists(w, conehot),
-                            lambda: torch.cdist(w, centers)),
-        "fused_coalition_stats": (lambda: fr.fused_coalition_stats(w, m),
-                                  lambda: ref.fused_coalition_stats(w, m),
-                                  None)}
-    sizes = {
-        "center_sq_dists": (wb + 4 * (k * n + n * k),
-                            2 * k * n * d + 3 * n * k * d),
-        "fused_coalition_stats": (wb + 4 * (k * n + k * d + d + n * k),
-                                  2 * k * n * d + k * d + d + 3 * n * k * d)}
-    out = {}
-    for name, (kernel, plain, library) in calls.items():
-        nbytes, ops = sizes[name]
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_FP32 * 1e3
-        row = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-               "library_ms": None if library is None else time_ms(library),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        enqueue = host_us(kernel)
-        lib = row["library_ms"]
-        print(f"time {name} N={n} K={k} D={d} f32, L2 flushed: kernel "
-              f"{row['ms']:.4f} ms ({nbytes / row['ms'] / 1e6:.1f} GB/s), "
-              f"plain {row['plain_ms']:.4f} ms, library "
-              f"{'-' if lib is None else f'{lib:.4f}'} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); wrapper host "
-              f"time {enqueue:.1f} us")
-        out[name] = row
+    pairs = n * (n - 1) // 2
+    out = {
+        "center_sq_dists": timed_row(
+            f"center_sq_dists N={n} K={k} D={d} f32",
+            lambda: fr.center_sq_dists(w, conehot),
+            lambda: ref.center_sq_dists(w, conehot),
+            lambda: torch.cdist(w, centers),
+            wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d),
+        "fused_coalition_stats": timed_row(
+            f"fused_coalition_stats N={n} K={k} D={d} f32",
+            lambda: fr.fused_coalition_stats(w, m),
+            lambda: ref.fused_coalition_stats(w, m), None,
+            wb + 4 * (k * n + k * d + d + n * k),
+            2 * k * n * d + k * d + d + 3 * n * k * d),
+        "segment_sum": timed_row(
+            f"segment_sum K={k} N={n} D={d} f32",
+            lambda: sm.segment_sum(m, w), lambda: ref.segment_sum(m, w),
+            lambda: m @ w, wb + 4 * (k * n + k * d), 2 * k * n * d),
+        "pairwise_sq_dists": timed_row(
+            f"pairwise_sq_dists N={n} D={d} f32",
+            lambda: pd.pairwise_sq_dists(w),
+            lambda: ref.pairwise_sq_dists(w),
+            lambda: torch.cdist(w, w) ** 2, wb + 4 * n * n,
+            3 * pairs * d)}
+    timed_row(f"sq_dists_to_points N={n} K={k} D={d} f32 (full W)",
+              lambda: pd.sq_dists_to_points(w, centers),
+              lambda: ref.sq_dists_to_points(w, centers),
+              lambda: torch.cdist(w, centers) ** 2,
+              wb + 4 * (k * d + n * k), 3 * n * k * d)
+    print(f"time pairwise Gram yardstick w @ w.T N={n} D={d}: "
+          f"{time_ms(lambda: w @ w.T):.4f} ms")
+    out["sq_dists_to_points"] = timed_row(
+        f"sq_dists_to_points N={n} K={k} D=S={s} f32 (sketch)",
+        lambda: pd.sq_dists_to_points(s_w, s_p),
+        lambda: ref.sq_dists_to_points(s_w, s_p),
+        lambda: torch.cdist(s_w, s_p) ** 2, 4 * (n * s + k * s + n * k),
+        3 * n * k * s)
+    one = torch.zeros(1, device="cuda")
+    print(f"time launch floor (one-element fill): "
+          f"{time_ms(lambda: one.fill_(1.0)):.4f} ms, host "
+          f"{host_us(lambda: one.fill_(1.0)):.1f} us")
     return out
 
 
+def report_rounds(out: dict, label: str, wall: float, launches: dict,
+                  rounds: int) -> None:
+    """Print a training run's per-round times and launches; fail unless it
+    ran ``rounds`` rounds to a finite accuracy above chance (0.1)."""
+    for r, (loc, srv) in enumerate(zip(out["local_s"], out["server_s"])):
+        print(f"{label} round {r}: local phase {loc:.4f} s, server step "
+              f"{srv:.4f} s")
+    per_round = {name: c / rounds for name, c in launches.items()}
+    print(f"{label}: {wall:.1f} s, launches {launches} ({per_round} per "
+          f"round), test_acc {out['test_acc']}")
+    acc = out["test_acc"][-1]
+    if not (math.isfinite(acc) and acc > 0.1):
+        fail(f"{label}: final test accuracy {acc} is not above chance")
+    if len(out["test_acc"]) != rounds:
+        fail(f"{label}: expected {rounds} rounds, got "
+             f"{len(out['test_acc'])}")
+
+
+def expect_launches(label: str, launches: dict, want: dict) -> None:
+    """Fail unless each kernel launched as often as ``want`` says (0 for a
+    kernel it does not name)."""
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"{label}: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+
+
 def run_main_path() -> dict:
-    """Phase 5: the port's training entry point, counters reset just before."""
-    from repro_torch.kernels import fused_round as fr
+    """Phase 6: the port's training entry point, counters reset just before:
+    the fused round's two kernels once per server step, no other kernel."""
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    fr.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = train.main(["--mode", "fl", "--rounds", str(ROUNDS)])
     wall = time.perf_counter() - t0
-    launches = dict(fr.LAUNCHES)
-    for r, (loc, srv) in enumerate(zip(out["local_s"], out["server_s"])):
-        print(f"round {r}: local phase {loc:.4f} s, server step {srv:.4f} s")
-    print(f"train --mode fl --rounds {ROUNDS}: {wall:.1f} s, launches "
-          f"{launches}, test_acc {out['test_acc']}")
-    for name, count in launches.items():
-        if count != ROUNDS:
-            fail(f"{name} launched {count} times in {ROUNDS} server steps")
-    acc = out["test_acc"][-1]
-    if not (math.isfinite(acc) and acc > 0.1):
-        fail(f"final test accuracy {acc} is not above chance")
-    if len(out["test_acc"]) != ROUNDS:
-        fail(f"expected {ROUNDS} rounds, got {len(out['test_acc'])}")
+    launches = ops.launch_counts()
+    label = f"train --mode fl --rounds {ROUNDS}"
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
     return launches
+
+
+def run_sketch_path():
+    """Phase 7: the sketch path through the training entry point, counters
+    reset just before: sq_dists_to_points twice and segment_sum once per
+    server step.  Returns the launches and the run's last client matrix
+    (recorded by wrapping ``pytree.client_matrix`` for the run)."""
+    from repro_torch.core import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    made = []
+    client_matrix = pytree.client_matrix
+
+    def recording(*args, **kw):
+        made[:] = [client_matrix(*args, **kw)]
+        return made[0]
+
+    pytree.client_matrix = recording
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.main([*SKETCH_ARGS, "--rounds", str(SKETCH_ROUNDS)])
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        pytree.client_matrix = client_matrix
+    label = f"train {' '.join(SKETCH_ARGS)} --rounds {SKETCH_ROUNDS}"
+    report_rounds(out, label, wall, launches, SKETCH_ROUNDS)
+    expect_launches(label, launches,
+                    {"sq_dists_to_points": 2 * SKETCH_ROUNDS,
+                     "segment_sum": SKETCH_ROUNDS})
+    if out["sketch"] != "rproj" or out["method"] != "coalition_topk":
+        fail(f"{label}: the summary reports sketch {out['sketch']!r}, "
+             f"method {out['method']!r}")
+    return launches, made[0]
+
+
+def run_pairwise(w) -> tuple[dict, float]:
+    """Phase 7, last: distance.pairwise_sq_dists on the sketch run's client
+    matrix through the cuda backend, counters reset just before; held to
+    the plain version.  Returns the launches and the max abs error."""
+    import torch
+
+    from repro_torch.core import distance
+    from repro_torch.kernels import ops, ref
+
+    ops.reset_launch_counts()
+    got = distance.pairwise_sq_dists(w, backend="cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    err, rel = rel_err(got, ref.pairwise_sq_dists(w))
+    print(f"pairwise_sq_dists on the run's client matrix {tuple(w.shape)}: "
+          f"max abs err {err:.3e}, / max {rel:.3e}, launches {launches}")
+    expect_launches("pairwise_sq_dists on the run's client matrix", launches,
+                    {"pairwise_sq_dists": 1})
+    if not (rel <= TOL and torch.all(torch.diagonal(got) == 0)):
+        fail("pairwise_sq_dists on the run's client matrix disagrees with "
+             "its plain version or has a diagonal that is not exactly 0")
+    return launches, err
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median ms of ``fn`` on the card by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def framework_scale() -> None:
+    """Phase 8: sketched against exact geometry at D = 8M (as the reference's
+    benchmarks/run.py bench_federation_sketch), the segment sum at that D,
+    and the sketch builds at the main path's D and at 8M."""
+    import torch
+
+    from repro_torch.core import backends, fused, instrument, sketch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_mean as sm
+
+    n, k, d = MAIN[0], MAIN[1], BIG_D
+    g = torch.Generator(device="cuda").manual_seed(0)
+    owner = torch.arange(n, device="cuda") % k
+    mu = torch.tensor([-4.0, 0.0, 4.0], device="cuda")[owner][:, None]
+    w = mu + 0.5 * torch.randn((n, d), generator=g, device="cuda")
+    ci = torch.tensor([0, 1, 2], device="cuda")
+    be = backends.get_backend("cuda")
+    b = fused.fused_round(w, ci, backend=be).barycenters   # outside timing
+
+    def exact():
+        d2c = be.sq_dists_to_points(w, w[ci])
+        return fused.pin_assignment(d2c, ci), be.sq_dists_to_points(w, b)
+
+    exact_ms = event_ms(exact)
+    ex_assign = exact()[0]
+    print(f"scale N={n} K={k} D={d}: exact geometry (two full-W "
+          f"sq_dists_to_points) {exact_ms:.4f} ms")
+    agreement = {}
+    for s in (64, 256, 1024):
+        sk = sketch.make_sketcher("countsketch", dim=s)
+        stage = lambda: fused.sketch_stage(be, sketch.sketch_matrix(sk, w), ci)
+        ms = event_ms(stage)
+        agreement[s] = float((stage()[0] == ex_assign).float().mean())
+        with instrument.count_w_passes() as passes:
+            fused.fused_round(w, ci, backend=be, sketcher=sk)
+        print(f"scale S={s}: countsketch + sketch_stage {ms:.4f} ms, speedup "
+              f"{exact_ms / ms:.2f}x, agreement {agreement[s]:.3f}, sketched "
+              f"round W passes {passes()}")
+        if passes() != 2:
+            fail(f"the sketched round at S={s} made {passes()} W passes")
+    if not agreement[1024] >= 0.95:
+        fail(f"sketched assignment agreement {agreement[1024]} < 0.95 at "
+             f"S=1024")
+    mix = torch.nn.functional.one_hot(owner, k).T.float().contiguous()
+    err, rel = rel_err(sm.segment_sum(mix, w), ref.segment_sum(mix, w))
+    if not rel <= TOL:
+        fail(f"segment_sum at D={d} disagrees with its plain version")
+    timed_row(f"segment_sum K={k} N={n} D={d} f32 (max abs err {err:.3e})",
+              lambda: sm.segment_sum(mix, w), lambda: ref.segment_sum(mix, w),
+              lambda: mix @ w, 4 * (n * d + k * n + k * d), 2 * k * n * d)
+    for dd in (MAIN[2], d):
+        wd = w[:, :dd].contiguous()
+        for name in ("rproj", "countsketch"):
+            sk = sketch.make_sketcher(name, dim=SKETCH_DIM)
+            t0 = time.perf_counter()
+            sketch.sketch_matrix(sk, wd)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            print(f"sketch build {name} S={SKETCH_DIM} D={dd}: "
+                  f"{event_ms(lambda: sketch.sketch_matrix(sk, wd)):.4f} ms "
+                  f"(first call {first:.1f} ms of host clock)")
+    del w, wd, b
+    torch.cuda.empty_cache()
 
 
 def profile_round() -> None:
@@ -329,16 +644,32 @@ def main() -> int:
     print(build.ptxas_report().strip())
 
     errs = check_kernels()
-    check_round()
+    dist_errs = check_dist_kernels()
+    check_rounds()
     times = time_kernels()
     launches = run_main_path()
+    sketch_launches, w = run_sketch_path()
+    pair_launches, pair_err = run_pairwise(w)
+    del w
+    framework_scale()
     profile_round()
 
+    n, k, d = MAIN
+    # each kernel's launches from the path it serves, its error at the
+    # shape that path gives it
+    launches.update({name: sketch_launches[name]
+                     for name in ("sq_dists_to_points", "segment_sum")})
+    launches["pairwise_sq_dists"] = pair_launches["pairwise_sq_dists"]
+    errs.update({
+        "sq_dists_to_points": dist_errs[("sq_dists_to_points", n, k,
+                                         SKETCH_DIM)],
+        "segment_sum": dist_errs[("segment_sum", n, k, d)],
+        "pairwise_sq_dists": pair_err})
     kernels = []
-    for name in ("center_sq_dists", "fused_coalition_stats"):
+    for name in REPLACES:
         row = times[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

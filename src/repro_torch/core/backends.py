@@ -17,16 +17,23 @@ Registered backends:
                the reference's ``xla``); registered by ``distance.py``.
   ``dot``    — Gram form (the counterpart of ``dot``); ``distance.py``.
   ``cuda``   — the counterpart of ``pallas``: its ``fused_round`` runs the two
-               hand-written kernels of :mod:`repro_torch.kernels.fused_round`
-               (their plain versions for CPU tensors).  Its three base
-               primitives are the kernels of ROADMAP queue B that later slices
-               port, and raise until then.
+               hand-written kernels of :mod:`repro_torch.kernels.fused_round`,
+               its three base primitives those of
+               :mod:`repro_torch.kernels.pairwise_dist` and
+               :mod:`repro_torch.kernels.segment_mean` (the plain versions for
+               CPU tensors).  Each base primitive counts its sweep over W.
+
+The reference's optional ``sketched_fused_round`` field serves only its
+sharded backends and waits for them (ROADMAP queue A item 10).
 """
 from __future__ import annotations
 
 from typing import TYPE_CHECKING, Callable, NamedTuple
 
 import torch
+
+from repro_torch.core import instrument
+from repro_torch.kernels import ops as kops
 
 if TYPE_CHECKING:   # runtime import would cycle (fused.py imports backends)
     from repro_torch.core.fused import FusedStats
@@ -68,17 +75,19 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
-def _not_ported(kernel: str, item: str) -> Callable[..., torch.Tensor]:
-    def primitive(*args, **kwargs):
-        raise NotImplementedError(
-            f"the 'cuda' backend's {kernel} is the TPU kernel {kernel} that "
-            f"ROADMAP queue B item {item} ports in a later slice; use backend "
-            f"'stream' or 'dot', or the fused round")
-
-    return primitive
-
-
 def _register_cuda() -> None:
+    def _pairwise(w):
+        instrument.count_w_pass()
+        return kops.pairwise_sq_dists(w.contiguous())
+
+    def _to_points(w, p):
+        instrument.count_w_pass()
+        return kops.sq_dists_to_points(w.contiguous(), p.contiguous())
+
+    def _segment_sum(onehot, w):
+        instrument.count_w_pass()
+        return kops.segment_sum(onehot.float().contiguous(), w.contiguous())
+
     def _fused_round(w, center_idx, *, client_weights=None):
         from repro_torch.core import fused as fz
 
@@ -86,10 +95,8 @@ def _register_cuda() -> None:
                                    client_weights=client_weights)
 
     register_backend(Backend(
-        name="cuda",
-        pairwise_sq_dists=_not_ported("pairwise_sq_dists", "B.5"),
-        sq_dists_to_points=_not_ported("sq_dists_to_points", "B.3"),
-        segment_sum=_not_ported("segment_sum", "B.4"),
+        name="cuda", pairwise_sq_dists=_pairwise,
+        sq_dists_to_points=_to_points, segment_sum=_segment_sum,
         fused_round=_fused_round))
 
 

@@ -10,7 +10,8 @@ Euclidean Distance between Weights (paper §III.C).
 
 Steps II-IV default to the backend's two-pass ``fused_round``
 (:mod:`repro_torch.core.fused`); ``run_round(..., fused=False)`` keeps the
-composed path of separate primitive calls.
+composed path of separate primitive calls (three W sweeps: assignment,
+barycenter segment sum, medoid distances).
 """
 from __future__ import annotations
 
@@ -94,7 +95,9 @@ def run_round(w: torch.Tensor, state: CoalitionState, *,
     Algorithm 1); zero-weight clients cannot be elected medoid.
     ``fused=True`` runs Steps II-IV through the backend's two-pass
     ``fused_round``; ``fused=False`` runs the composed path.  A non-identity
-    ``sketcher`` raises until the sketch slice lands.
+    ``sketcher`` (:mod:`repro_torch.core.sketch`) runs assignment and medoid
+    election on the (N, S) sketch, through the fused entry point whatever
+    ``fused`` says (the composed path has no sketched form).
     """
     backend = bk.get_backend(backend)
     k = state.center_idx.shape[0]

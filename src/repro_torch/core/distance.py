@@ -8,7 +8,8 @@ The (N, D) weight matrix is never expanded to an (N, N, D) difference: the
   ``'stream'`` — exact chunked diff form (the reference's ``xla``)
   ``'dot'``    — Gram form ‖wi‖² + ‖wj‖² − 2⟨wi, wj⟩
 
-including their ``segment_sum`` barycenter reduction (a one-hot product).
+including their ``segment_sum`` barycenter reduction (a one-hot product);
+``'cuda'`` (the hand-written kernels) is registered by ``backends.py``.
 The public functions resolve whichever name or
 :class:`~repro_torch.core.backends.Backend` the caller passes.
 """
@@ -94,6 +95,13 @@ def pairwise_sq_dists(w: torch.Tensor, *,
                       backend: str | bk.Backend = "stream") -> torch.Tensor:
     """(N, N) float32 squared pairwise distances of the rows of ``w``."""
     return bk.get_backend(backend).pairwise_sq_dists(w)
+
+
+def pairwise_dists(w: torch.Tensor, *,
+                   backend: str | bk.Backend = "stream") -> torch.Tensor:
+    """The paper's d(ω_i, ω_j): element-wise sqrt of the squared distances."""
+    return torch.sqrt(torch.clamp(pairwise_sq_dists(w, backend=backend),
+                                  min=0.0))
 
 
 def sq_dists_to_points(w: torch.Tensor, points: torch.Tensor, *,

@@ -27,6 +27,10 @@ Implementations (registered through :mod:`repro_torch.core.backends`):
   :func:`compose_fused_round` — the generic composition of the three base
                                 primitives, for backends without a fused
                                 round.
+
+A non-identity sketcher (:mod:`repro_torch.core.sketch`) moves pass 1 and
+the medoid election onto the (N, S) sketch (:func:`sketched_fused_round`):
+the sketch is one sweep over W and the barycenter segment sum the only other.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import backends as bk
 from repro_torch.core import instrument
+from repro_torch.core import sketch as sk_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics as obs_metrics
 
@@ -254,27 +259,68 @@ def compose_fused_round(backend: bk.Backend, w: torch.Tensor,
                       med_d2=med_d2, theta=theta)
 
 
+# --- sketched round (assignment + medoids in sketch space) ------------------------
+
+def sketch_stage(backend: bk.Backend, s_w: torch.Tensor,
+                 center_idx: torch.Tensor, *,
+                 client_weights: torch.Tensor | None = None):
+    """Pass 1 and the medoid geometry entirely on the (N, S) sketch.
+
+    The sketch map is linear, so ``(oh_eff @ s_w) / denom`` is the exact
+    sketch of the true barycenters and the medoid-electing distances are JL
+    estimates; nothing here touches full W.  The backend's distance
+    primitives run on the sketch under :func:`instrument.suspend_w_passes`.
+
+    Returns ``(assignment, oh_eff, counts, denom, med_d2)``.
+    """
+    k = center_idx.shape[0]
+    with instrument.suspend_w_passes():
+        d2c = backend.sq_dists_to_points(s_w, s_w[center_idx])
+        assignment = pin_assignment(d2c, center_idx)
+        oh_eff, counts, denom = aggregation_matrix(assignment, k, center_idx,
+                                                   client_weights)
+        s_b = (oh_eff @ s_w.float()) / denom[:, None]               # (K, S)
+        med_d2 = backend.sq_dists_to_points(s_w, s_b)
+    return assignment, oh_eff, counts, denom, med_d2
+
+
+def sketched_fused_round(backend: bk.Backend, w: torch.Tensor,
+                         s_w: torch.Tensor, center_idx: torch.Tensor, *,
+                         client_weights: torch.Tensor | None = None,
+                         ) -> FusedStats:
+    """One coalition round given the sketch ``s_w``: ONE full sweep over W,
+    the barycenter segment sum (which counts its own pass)."""
+    assignment, oh_eff, counts, denom, med_d2 = sketch_stage(
+        backend, s_w, center_idx, client_weights=client_weights)
+    b = backend.segment_sum(oh_eff, w) / denom[:, None]
+    theta = torch.mean(b, dim=0)
+    return FusedStats(assignment=assignment, barycenters=b, counts=counts,
+                      med_d2=med_d2, theta=theta)
+
+
 # --- dispatcher ------------------------------------------------------------------
 
 def fused_round(w: torch.Tensor, center_idx: torch.Tensor, *,
                 client_weights: torch.Tensor | None = None,
                 backend: str | bk.Backend = "stream",
-                sketcher=None) -> FusedRound:
+                sketcher: sk_mod.Sketcher | None = None) -> FusedRound:
     """One fused Algorithm-1 round (Steps II-IV) over client weights ``w``.
 
     Runs ``backend.fused_round`` when the backend has one, else
-    :func:`compose_fused_round`; finishes with the shared medoid argmin and
-    the intra radius, both O(N·K) algebra over ``med_d2``.  Sketched
-    geometry is not ported yet: a non-identity ``sketcher`` raises.
+    :func:`compose_fused_round`; a non-identity ``sketcher`` runs
+    :func:`sketched_fused_round` on its sketch of W instead (2 W sweeps).
+    Finishes with the shared medoid argmin and the intra radius, both
+    O(N·K) algebra over ``med_d2``.
     """
-    if sketcher is not None and not sketcher.is_identity:
-        raise NotImplementedError(
-            "sketched rounds wait for the sketch slice (ROADMAP queue A "
-            "item 7)")
     backend = bk.get_backend(backend)
-    impl = (backend.fused_round if backend.fused_round is not None
-            else functools.partial(compose_fused_round, backend))
-    s = impl(w, center_idx, client_weights=client_weights)
+    if sketcher is not None and not sketcher.is_identity:
+        s_w = sk_mod.sketch_matrix(sketcher, w)
+        s = sketched_fused_round(backend, w, s_w, center_idx,
+                                 client_weights=client_weights)
+    else:
+        impl = (backend.fused_round if backend.fused_round is not None
+                else functools.partial(compose_fused_round, backend))
+        s = impl(w, center_idx, client_weights=client_weights)
     new_center_idx = medoid_from_d2(s.med_d2, s.assignment, client_weights)
     radius = obs_metrics.intra_radius(s.med_d2, s.assignment,
                                       center_idx.shape[0], client_weights)

@@ -20,8 +20,9 @@ Strategies are built through a registry::
     strat = make_strategy("my_rule", n_clients=10, n_coalitions=3)
 
 Ported so far: ``coalition``, the paper's Algorithm 1 (θ = mean of the
-coalition barycenters).  ``fedavg``, ``fedavg_weighted``, ``fedavg_trimmed``
-and ``coalition_topk`` wait for ROADMAP queue A item 5.
+coalition barycenters), and ``coalition_topk`` (θ = mean of the ``top_m``
+most populated coalitions' barycenters); both take a sketch.  ``fedavg``,
+``fedavg_weighted`` and ``fedavg_trimmed`` wait for ROADMAP queue A item 5.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.core import backends as bk
 from repro_torch.core import coalitions as co
+from repro_torch.core import sketch as sk_mod
 
 
 class RoundMetrics(NamedTuple):
@@ -83,8 +85,8 @@ _STRATEGIES: dict[str, Callable[..., Strategy]] = {}
 def register_strategy(name: str) -> Callable:
     """Decorator: register a strategy factory under ``name``.
 
-    The factory receives keyword config: ``n_clients``, ``n_coalitions``
-    and ``backend``.
+    The factory receives keyword config: ``n_clients``, ``n_coalitions``,
+    ``backend`` and the rule's own keywords (it ignores those of others).
     """
 
     def deco(factory: Callable[..., Strategy]) -> Callable[..., Strategy]:
@@ -95,8 +97,8 @@ def register_strategy(name: str) -> Callable:
 
 
 def make_strategy(name: str, *, n_clients: int, n_coalitions: int = 1,
-                  backend: str | bk.Backend = "stream") -> Strategy:
-    """Build a registered strategy from the shared config."""
+                  backend: str | bk.Backend = "stream", **extra) -> Strategy:
+    """Build a registered strategy from shared + rule-specific config."""
     try:
         factory = _STRATEGIES[name]
     except KeyError:
@@ -104,7 +106,7 @@ def make_strategy(name: str, *, n_clients: int, n_coalitions: int = 1,
             f"unknown strategy {name!r}; available: {available_strategies()}"
         ) from None
     return factory(n_clients=n_clients, n_coalitions=n_coalitions,
-                   backend=backend)
+                   backend=backend, **extra)
 
 
 def available_strategies() -> tuple[str, ...]:
@@ -120,22 +122,75 @@ class CoalitionStrategy(Strategy):
 
     backend: bk.Backend = dataclasses.field(
         default_factory=lambda: bk.get_backend("stream"))
+    #: optional sketched geometry: a non-identity sketcher runs assignment
+    #: and medoid election on the (N, S) sketch; None/identity is exact
+    sketcher: sk_mod.Sketcher | None = None
 
     def init_state(self, w0, *, perm=None, generator=None):
         return co.init_centers(w0, self.n_groups, perm=perm,
                                generator=generator)
 
-    def round(self, w, state):
-        r = co.run_round(w, state, backend=self.backend)
-        return RoundResult(theta=r.theta, state=r.state,
+    def _coalition_round(self, w, state) -> co.CoalitionRound:
+        return co.run_round(w, state, backend=self.backend,
+                            sketcher=self.sketcher)
+
+    def _result(self, r: co.CoalitionRound, theta) -> RoundResult:
+        return RoundResult(theta=theta, state=r.state,
                            metrics=RoundMetrics(assignment=r.assignment,
                                                 counts=r.counts,
                                                 radius=r.radius),
                            barycenters=r.barycenters)
 
+    def round(self, w, state):
+        r = self._coalition_round(w, state)
+        return self._result(r, r.theta)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCoalitionStrategy(CoalitionStrategy):
+    """Trimmed Algorithm 1: θ averages only the ``top_m`` most populated
+    coalitions, so splinter groups stop pulling the global model.  Equal
+    counts go to the lower coalition index (a stable descending sort), as
+    ``jax.lax.top_k`` breaks them in the reference."""
+
+    top_m: int = 1
+
+    def __post_init__(self):
+        if not 1 <= self.top_m <= self.n_groups:
+            raise ValueError(
+                f"top_m={self.top_m} must be in [1, n_coalitions="
+                f"{self.n_groups}]")
+
+    def round(self, w, state):
+        r = self._coalition_round(w, state)
+        order = torch.sort(r.counts, descending=True, stable=True).indices
+        theta = torch.mean(r.barycenters[order[:self.top_m]], dim=0)
+        return self._result(r, theta)
+
+
+def _resolve_sketcher(sketch=None, sketch_dim=None) -> sk_mod.Sketcher | None:
+    """Factory plumbing for the ``--sketch``/``--sketch-dim`` CLI knobs: a
+    registered name (sketch seed 0, as the reference's CLI) or a Sketcher."""
+    if sketch is None or isinstance(sketch, sk_mod.Sketcher):
+        return sketch
+    return sk_mod.make_sketcher(sketch, dim=sketch_dim)
+
 
 @register_strategy("coalition")
-def _make_coalition(*, n_clients, n_coalitions=3,
-                    backend="stream") -> Strategy:
+def _make_coalition(*, n_clients, n_coalitions=3, backend="stream",
+                    sketch=None, sketch_dim=None, **_) -> Strategy:
     return CoalitionStrategy(n_clients=n_clients, n_groups=n_coalitions,
-                             backend=bk.get_backend(backend))
+                             backend=bk.get_backend(backend),
+                             sketcher=_resolve_sketcher(sketch, sketch_dim))
+
+
+@register_strategy("coalition_topk")
+def _make_coalition_topk(*, n_clients, n_coalitions=3, backend="stream",
+                         top_m=None, sketch=None, sketch_dim=None,
+                         **_) -> Strategy:
+    if top_m is None:
+        top_m = max(1, n_coalitions - 1)
+    return TopKCoalitionStrategy(n_clients=n_clients, n_groups=n_coalitions,
+                                 backend=bk.get_backend(backend),
+                                 sketcher=_resolve_sketcher(sketch, sketch_dim),
+                                 top_m=top_m)

@@ -31,8 +31,7 @@
 // Limits (the entry points return cudaErrorInvalidValue beyond them):
 //   1 <= N <= kMaxN, 1 <= K <= N, N*K <= kMaxPairs, D >= 1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -42,17 +41,6 @@ constexpr int kStride = kTile + 1;        // padded shared-memory row stride
 constexpr int kMaxItems = 8;              // (pair, lane) accumulators a thread
 constexpr int kMaxN = 128;
 constexpr int kMaxPairs = kThreads * kMaxItems;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __host__ __device__ inline int lanes_for(int npairs) {
   return npairs >= kThreads ? 1 : kThreads / npairs;
@@ -183,18 +171,8 @@ cudaError_t grid_for(int n, long long d, int k, int device, int* grid) {
   size_t smem = 0;
   cudaError_t err = prepare<T, STATS>(n, k, device, &smem);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tile_sq_dists<T, STATS>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long ntiles = (d + kTile - 1) / kTile;
-  const long long full = static_cast<long long>(per_sm) * sms;
-  *grid = static_cast<int>(ntiles < full ? ntiles : full);
-  return cudaSuccess;
+  return fill_grid(tile_sq_dists<T, STATS>, kThreads, smem, device,
+                   (d + kTile - 1) / kTile, grid);
 }
 
 template <typename T, bool STATS>
@@ -220,10 +198,6 @@ extern "C" {
 void fr_limits(int* max_n, int* max_pairs) {
   *max_n = kMaxN;
   *max_pairs = kMaxPairs;
-}
-
-const char* fr_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Number of CTAs a pass launches for this shape (the columns of `partials`).

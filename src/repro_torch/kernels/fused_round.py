@@ -42,11 +42,9 @@ def reset_launch_counts() -> None:
 def _load() -> ctypes.CDLL:
     global _lib, _LIMITS
     if _lib is None:
-        lib = build.load()
+        lib = build.load("csrc/fused_round.cu")
         lib.fr_limits.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
         lib.fr_limits.restype = None
-        lib.fr_error_string.argtypes = [_I]
-        lib.fr_error_string.restype = ctypes.c_char_p
         lib.fr_grid.argtypes = [_I, _I, _I, _L, _I, _I, ctypes.POINTER(_I)]
         lib.fr_grid.restype = _I
         lib.fr_center_sq_dists.argtypes = [_P, _I, _P, _P, _P, _I, _L, _I, _I,
@@ -60,12 +58,6 @@ def _load() -> ctypes.CDLL:
         _LIMITS = (max_n.value, max_pairs.value)
         _lib = lib
     return _lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.fr_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
 def _check(w: torch.Tensor, mix: torch.Tensor, what: str) -> tuple[int, int, int]:
@@ -102,7 +94,7 @@ def _grid(lib, stats: bool, w: torch.Tensor, n: int, d: int, k: int) -> int:
         out = _I()
         err = lib.fr_grid(int(stats), int(key[1]), n, d, k, w.device.index,
                           ctypes.byref(out))
-        _raise_on(lib, err, "fr_grid")
+        build.raise_on(err, "fr_grid")
         grid = _GRIDS[key] = out.value
     return grid
 
@@ -120,7 +112,7 @@ def center_sq_dists(w: torch.Tensor, conehot: torch.Tensor) -> torch.Tensor:
         w.data_ptr(), int(w.dtype == torch.bfloat16), conehot.data_ptr(),
         partials.data_ptr(), out.data_ptr(), n, d, k, grid, w.device.index,
         stream)
-    _raise_on(lib, err, "center_sq_dists")
+    build.raise_on(err, "center_sq_dists")
     LAUNCHES["center_sq_dists"] += 1
     return out
 
@@ -141,6 +133,6 @@ def fused_coalition_stats(w: torch.Tensor, m: torch.Tensor,
         w.data_ptr(), int(w.dtype == torch.bfloat16), m.data_ptr(),
         b.data_ptr(), theta.data_ptr(), partials.data_ptr(), med_d2.data_ptr(),
         n, d, k, grid, w.device.index, stream)
-    _raise_on(lib, err, "fused_coalition_stats")
+    build.raise_on(err, "fused_coalition_stats")
     LAUNCHES["fused_coalition_stats"] += 1
     return b, theta, med_d2

@@ -8,7 +8,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import fused_round, ref
+from repro_torch.kernels import fused_round, pairwise_dist, ref, segment_mean
+
+_WRAPPERS = (fused_round, pairwise_dist, segment_mean)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod in _WRAPPERS:
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel in this process, by kernel name."""
+    return {name: n for mod in _WRAPPERS for name, n in mod.LAUNCHES.items()}
 
 
 def _on_card(w: torch.Tensor) -> bool:
@@ -31,3 +44,24 @@ def fused_coalition_stats(w: torch.Tensor, m: torch.Tensor):
     if _on_card(w):
         return fused_round.fused_coalition_stats(w, m)
     return ref.fused_coalition_stats(w, m)
+
+
+def pairwise_sq_dists(w: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (N, N) squared distances, clamped at 0, zero diagonal."""
+    if _on_card(w):
+        return pairwise_dist.pairwise_sq_dists(w)
+    return ref.pairwise_sq_dists(w)
+
+
+def sq_dists_to_points(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(N, D), (K, D) -> (N, K) squared distances, clamped at 0."""
+    if _on_card(w):
+        return pairwise_dist.sq_dists_to_points(w, p)
+    return ref.sq_dists_to_points(w, p)
+
+
+def segment_sum(mix: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(K, N) @ (N, D) -> (K, D) coalition sums."""
+    if _on_card(w):
+        return segment_mean.segment_sum(mix, w)
+    return ref.segment_sum(mix, w)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fused-round kernels (the correctness contract).
+"""Plain PyTorch versions of the kernels (the correctness contract).
 
 Each function is the mathematical definition with no tiling: the CPU path of
 :mod:`repro_torch.kernels.ops` runs these, and the kernel tests hold the CUDA
@@ -9,12 +9,24 @@ from __future__ import annotations
 import torch
 
 
+def pairwise_sq_dists(w: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (N, N) squared Euclidean distances, in float32."""
+    w = w.float()
+    diff = w[:, None, :] - w[None, :, :]
+    return torch.sum(diff * diff, dim=-1)
+
+
 def sq_dists_to_points(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(N, D), (K, D) -> (N, K) squared distances, in float32."""
     w = w.float()
     p = p.float()
     diff = w[:, None, :] - p[None, :, :]
     return torch.sum(diff * diff, dim=-1)
+
+
+def segment_sum(mix: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(K, N) one-hot/weights x (N, D) -> (K, D) per-coalition sums."""
+    return mix.float() @ w.float()
 
 
 def center_sq_dists(w: torch.Tensor, conehot: torch.Tensor) -> torch.Tensor:

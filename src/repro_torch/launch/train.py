@@ -8,11 +8,17 @@ The run is on a CUDA card unless the caller passes ``--device cpu``; without
 a card and without ``--device cpu`` it exits non-zero.  The f32 CNN runs
 with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` both False) so it matches the f32
-reference.  ``--backend cuda`` (the default) runs the fused round's two
-hand-written kernels; ``stream`` and ``dot`` run it in plain PyTorch.
+reference.  ``--backend cuda`` (the default) runs the coalition round
+through the hand-written kernels (the fused round's two, or with a sketch
+``sq_dists_to_points`` and ``segment_sum``); ``stream`` and ``dot`` run it in
+plain PyTorch.  ``--sketch rproj|countsketch`` moves assignment and medoid
+election onto an (N, S) sketch of the client weights (``--sketch-dim`` S,
+default 256).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --method coalition_topk --sketch rproj --sketch-dim 256
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl --device cpu \
       --regime shard --rounds 3 --clients 6 --coalitions 2 --local-epochs 1 \
       --n-train 600 --n-test 200
@@ -27,9 +33,40 @@ import numpy as np
 import torch
 
 from repro_torch.core import backends as bk
+from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import strategies
 from repro_torch.data import partition
 from repro_torch.models import zoo as zoo_mod
+
+
+# which strategies consume each CLI hyper-parameter: factories tolerate
+# unknown keywords, so without this check a mismatched flag would be ignored
+# while still looking applied
+_EXTRA_CONSUMERS = {
+    "top_m": ("coalition_topk",),
+    "sketch": ("coalition", "coalition_topk"),
+    "sketch_dim": ("coalition", "coalition_topk"),
+}
+
+
+def _strategy_extras(args) -> dict:
+    """Per-strategy hyper-parameters from the CLI (None = rule's default)."""
+    extras = {}
+    if args.top_m is not None:
+        extras["top_m"] = args.top_m
+    if args.sketch != "identity":
+        extras["sketch"] = args.sketch
+        if args.sketch_dim is not None:
+            extras["sketch_dim"] = args.sketch_dim
+    elif args.sketch_dim is not None:
+        raise SystemExit("--sketch-dim requires --sketch rproj|countsketch "
+                         "(identity has no sketch dimension)")
+    for name in extras:
+        if args.method not in _EXTRA_CONSUMERS[name]:
+            raise SystemExit(
+                f"--{name.replace('_', '-')} applies only to "
+                f"{_EXTRA_CONSUMERS[name]}, not --method {args.method}")
+    return extras
 
 
 def resolve_device(name: str) -> torch.device:
@@ -47,6 +84,7 @@ def run_fl(args) -> dict:
     from repro_torch.core.server import Federation, FederationConfig
     from repro_torch.data import loader, synthetic
 
+    extras = _strategy_extras(args)
     device = resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -71,19 +109,23 @@ def run_fl(args) -> dict:
         client=ClientConfig(epochs=args.local_epochs,
                             batch_size=args.batch_size, lr=args.lr),
         backend=args.backend, engine=args.engine)
+    strategy = strategies.make_strategy(
+        args.method, n_clients=args.clients, n_coalitions=args.coalitions,
+        backend=args.backend, **extras)
     model = zoo_mod.make_model(args.model)
     # one CPU generator per run: the CNN init, then the federation's draws
     gen = torch.Generator().manual_seed(args.seed)
     params = model.init(gen, device=device)
     t0 = time.time()
-    fed = Federation(model, lambda p: model.accuracy(p, xte_t, yte_t), cfg)
+    fed = Federation(model, lambda p: model.accuracy(p, xte_t, yte_t), cfg,
+                     strategy=strategy)
     _, hist = fed.run(params, cd, generator=gen)
     out = {"mode": "fl", "method": args.method, "engine": args.engine,
-           "model": args.model, "sketch": "identity",
+           "model": args.model, "sketch": args.sketch,
            "regime": args.regime, "scenario": "independent", "rho": 0.0,
            "scenario_spearman": round(scn.metadata["spearman"], 4),
            "source": source, "rounds": hist.rounds,
-           "strategy_extras": {},
+           "strategy_extras": extras,
            "test_acc": hist.test_acc, "train_loss": hist.train_loss,
            "final_assignment": hist.assignments[-1],
            "final_counts": hist.counts[-1],
@@ -121,8 +163,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-test", type=int, default=4000)
     ap.add_argument("--backend", default="cuda",
                     choices=sorted(bk.available_backends()),
-                    help="fused-round backend: cuda (the hand-written "
+                    help="coalition-round backend: cuda (the hand-written "
                          "kernels), stream or dot (plain PyTorch)")
+    ap.add_argument("--sketch", default="identity",
+                    choices=sorted(sketch_mod.available_sketchers()),
+                    help="coalition methods: run assignment and medoid "
+                         "election on a seeded (N, S) sketch of the client "
+                         "weights instead of full (N, D) distances; "
+                         "'identity' is the exact path")
+    ap.add_argument("--sketch-dim", type=int, default=None,
+                    help="sketch dimension S (rproj/countsketch; "
+                         "default 256)")
+    ap.add_argument("--top-m", type=int, default=None,
+                    help="coalition_topk: aggregate only the top_m largest "
+                         "coalitions (default K - 1)")
     ap.add_argument("--model", default="cnn",
                     choices=sorted(zoo_mod.available_models()))
     ap.add_argument("--engine", default="scan", choices=["scan", "python"],

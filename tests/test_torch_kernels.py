@@ -1,9 +1,10 @@
-"""The port's fused-round kernels against the reference's.
+"""The port's kernels against the reference's.
 
 On the CPU the port runs each kernel's plain PyTorch version; they are held
 to the reference's Pallas kernels (interpret mode, as tests/test_kernels.py
-runs them) and to ``repro.kernels.ref`` on the same numpy inputs, with the
-bounds of tests/test_kernels.py: 5e-6 of the max for f32, 5e-3 for bf16.
+runs them) and to ``repro.kernels.ref`` on the same numpy inputs, at the
+shapes and with the bounds of tests/test_kernels.py: 5e-6 of the max for
+f32, 5e-3 for bf16 (pairwise), rtol 1e-5 and atol 1e-4 for segment_sum.
 The CUDA kernels themselves are held to the plain versions by
 tests/test_torch_cuda.py, which runs on a card and skips without one.
 """
@@ -18,11 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import distance as jdist
 from repro.kernels import fused_round as jfr
+from repro.kernels import pairwise_dist as jpd
 from repro.kernels import ref as jref
+from repro.kernels import segment_mean as jsm
+from repro_torch.core import distance as tdist
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import fused_round as tfr
-from repro_torch.kernels import ref as tref
+from repro_torch.kernels import pairwise_dist as tpd
+from repro_torch.kernels import segment_mean as tsm
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = {"float32": 5e-6, "bfloat16": 5e-3}
@@ -86,34 +92,102 @@ def test_plain_sq_dists_to_points_matches_reference(n, k, d):
     rng = np.random.default_rng(d)
     w = rng.standard_normal((n, d)).astype(np.float32)
     p = rng.standard_normal((k, d)).astype(np.float32)
-    got = tref.sq_dists_to_points(torch.from_numpy(w), torch.from_numpy(p))
+    got = ops.sq_dists_to_points(torch.from_numpy(w), torch.from_numpy(p))
+    kern = jpd.sq_dists_to_points(jnp.asarray(w), jnp.asarray(p),
+                                  block_d=2048, interpret=True)
+    _close(got, kern, TOL["float32"])
     _close(got, jref.sq_dists_to_points(jnp.asarray(w), jnp.asarray(p)),
            TOL["float32"])
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (4, 257, "float32"), (10, 5000, "float32"), (16, 16384, "float32"),
+    (10, 5000, "bfloat16"), (3, 128, "float32"), (32, 1000, "float32")])
+def test_plain_pairwise_sq_dists_matches_reference(n, d, dtype):
+    w, _, _ = _inputs(n, 1, d, dtype)
+    got = ops.pairwise_sq_dists(_torch(w, dtype))
+    kern = jpd.pairwise_sq_dists(_jax(w, dtype), block_d=4096,
+                                 interpret=True)
+    _close(got, kern, TOL[dtype])
+    _close(got, jref.pairwise_sq_dists(_jax(w, dtype)), TOL[dtype])
+    assert torch.all(torch.diagonal(got) == 0)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("k,n,d", [(3, 10, 1000), (8, 32, 4097), (2, 4, 64)])
+def test_plain_segment_sum_matches_reference(k, n, d):
+    rng = np.random.default_rng(k * n * d)
+    onehot = np.eye(k, dtype=np.float32)[rng.integers(0, k, n)].T
+    onehot = np.ascontiguousarray(onehot)
+    w = rng.standard_normal((n, d)).astype(np.float32)
+    got = ops.segment_sum(torch.from_numpy(onehot), torch.from_numpy(w))
+    kern = jsm.segment_sum(jnp.asarray(onehot), jnp.asarray(w), block_d=512,
+                           interpret=True)
+    for want in (kern, jref.segment_sum(jnp.asarray(onehot), jnp.asarray(w))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("backend,ref_backend", [
+    ("stream", "xla"), ("dot", "dot"), ("cuda", "pallas")])
+def test_pairwise_dists_matches_reference(backend, ref_backend):
+    """The paper's d(ω_i, ω_j), through each backend pair."""
+    w, _, _ = _inputs(8, 1, 3000, "float32")
+    got = tdist.pairwise_dists(torch.from_numpy(w), backend=backend)
+    want = jdist.pairwise_dists(jnp.asarray(w), backend=ref_backend)
+    _close(got, want, 1e-5)
 
 
 def test_cpu_tensors_take_the_plain_version():
     """ops sends CPU tensors to the plain version: no kernel launch."""
     w, conehot, m = _inputs(6, 2, 300, "float32")
-    before = dict(tfr.LAUNCHES)
-    ops.center_sq_dists(torch.from_numpy(w), torch.from_numpy(conehot))
-    ops.fused_coalition_stats(torch.from_numpy(w), torch.from_numpy(m))
-    assert tfr.LAUNCHES == before
+    wt, mt = torch.from_numpy(w), torch.from_numpy(m)
+    before = ops.launch_counts()
+    ops.center_sq_dists(wt, torch.from_numpy(conehot))
+    ops.fused_coalition_stats(wt, mt)
+    ops.pairwise_sq_dists(wt)
+    ops.sq_dists_to_points(wt, wt[:2])
+    ops.segment_sum(mt, wt)
+    assert ops.launch_counts() == before
+    assert set(before) == {"center_sq_dists", "fused_coalition_stats",
+                           "pairwise_sq_dists", "sq_dists_to_points",
+                           "segment_sum"}
 
 
 def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises; it never computes on CPU."""
     w, conehot, m = _inputs(6, 2, 300, "float32")
+    wt, mt = torch.from_numpy(w), torch.from_numpy(m)
     with pytest.raises(ValueError, match="CUDA"):
-        tfr.center_sq_dists(torch.from_numpy(w), torch.from_numpy(conehot))
+        tfr.center_sq_dists(wt, torch.from_numpy(conehot))
     with pytest.raises(ValueError, match="CUDA"):
-        tfr.fused_coalition_stats(torch.from_numpy(w), torch.from_numpy(m))
+        tfr.fused_coalition_stats(wt, mt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpd.pairwise_sq_dists(wt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpd.sq_dists_to_points(wt, wt[:2])
+    with pytest.raises(ValueError, match="CUDA"):
+        tsm.segment_sum(mt, wt)
+
+
+def test_reset_launch_counts_zeroes_every_kernel():
+    tpd.LAUNCHES["pairwise_sq_dists"] += 1
+    tsm.LAUNCHES["segment_sum"] += 1
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
 
 
 def test_library_names_follow_source_and_flags():
-    path = build.library_path()
-    assert path.parent == build.BUILD_DIR
-    assert path == build.library_path()
-    assert (build.HERE / build.SOURCE).exists()
+    paths = [build.library_path(src) for src in build.SOURCES]
+    assert paths == [build.library_path(src) for src in build.SOURCES]
+    assert len(set(paths)) == len(build.SOURCES)
+    for src, path in zip(build.SOURCES, paths):
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{Path(src).stem}-")
+    for name in build.SOURCES + build.HEADERS:
+        assert (build.HERE / name).exists(), name
+    assert sorted((build.HERE / "csrc").iterdir()) == sorted(
+        build.HERE / name for name in build.SOURCES + build.HEADERS)
 
 
 def test_port_imports_neither_jax_nor_repro():
