@@ -16,7 +16,11 @@ In order, it
      and at the sketch widths D = S in {64, 256, 1024}, ``pairwise_sq_dists``
      with its diagonal exactly 0.  The max error must stay within 5e-6 of
      the max for both dtypes (kernel and plain version upcast the same bf16
-     values to f32), and the launch counters must move;
+     values to f32), and the launch counters must move.  ``flash_attention``
+     at the reference's sweep in f32 and bf16, at the pretrain path's shape
+     and at longer and wider (Dh 96, 128) shapes in bf16, within the
+     reference's rtol = atol (2e-4 f32, 2e-2 bf16), and its gradient
+     through ``ops.flash_attention`` within 2e-3 of the plain version's;
   4. holds whole rounds on the ``cuda`` backend against the ``stream``
      backend at the main width: the fused round, the composed round and the
      sketched round (rproj and countsketch, S = 256): equal assignments and
@@ -24,7 +28,9 @@ In order, it
   5. times each kernel at the main path's shapes with CUDA events after a
      warm-up, with the 50 MB L2 cache flushed before every launch, beside
      its bound, its plain version and a one-call library yardstick, and the
-     host time a wrapper call takes to enqueue;
+     host time a wrapper call takes to enqueue (``flash_attention`` in bf16
+     at the pretrain path's shape, against
+     ``F.scaled_dot_product_attention``, and at S = 4096);
   6. runs ``repro_torch.launch.train --mode fl`` at its defaults with
      ``--rounds 3`` on the card, with the launch counters set to 0 just
      before: each fused-round kernel must have launched once per server step
@@ -45,7 +51,15 @@ In order, it
      at the main path's;
   9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
-  10. prints the card again, one JSON line with every kernel's numbers, and
+  10. runs the pretrain path, ``train --mode pretrain --flash --lr 1e-3
+      --steps 8`` at its other defaults (hymba-1.5b in full, batch 10 x 129
+      tokens, Adam), counters set to 0 just before: ``flash_attention`` once
+      per layer per step (32 x 8), no other kernel, every loss finite and
+      the last below the first; prints seconds per step, tokens/s and the
+      peak memory.  Then one forward of the full model with the kernel and
+      without (losses within 1e-2 relative), and one pretrain step traced
+      with torch.profiler (busy share, top kernels);
+  11. prints the card again, one JSON line with every kernel's numbers, and
       last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 before any
@@ -83,21 +97,54 @@ DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 64, "float32"),
 #: the sketch width of the sketch path, and the framework-scale D
 SKETCH_DIM = 256
 BIG_D = 8_000_000
-#: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
-#: fp32 FLOP/s outside the tensor cores
+#: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s,
+#: fp32 FLOP/s outside the tensor cores, bf16 FLOP/s of the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 REPLACES = {"center_sq_dists": "src/repro/kernels/fused_round.py:52",
             "fused_coalition_stats": "src/repro/kernels/fused_round.py:100",
             "pairwise_sq_dists": "src/repro/kernels/pairwise_dist.py:42",
             "sq_dists_to_points": "src/repro/kernels/pairwise_dist.py:86",
-            "segment_sum": "src/repro/kernels/segment_mean.py:26"}
+            "segment_sum": "src/repro/kernels/segment_mean.py:26",
+            "flash_attention": "src/repro/kernels/flash_attention.py:73"}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"center_sq_dists": _CSRC + "fused_round.cu",
            "fused_coalition_stats": _CSRC + "fused_round.cu",
            "pairwise_sq_dists": _CSRC + "pairwise_dist.cu",
            "sq_dists_to_points": _CSRC + "pairwise_dist.cu",
-           "segment_sum": _CSRC + "segment_mean.cu"}
+           "segment_sum": _CSRC + "segment_mean.cu",
+           "flash_attention": _CSRC + "flash_attention.cu"}
+#: the pretrain path: hymba-1.5b in full (32 layers, 25 / 5 heads of 64,
+#: window 1024, bf16), batch 10 of seq_len + 1 = 129 tokens, Adam
+PRETRAIN_STEPS = 8
+PRETRAIN_LR = "1e-3"
+PRETRAIN_ARGS = ["--mode", "pretrain", "--flash", "--lr", PRETRAIN_LR,
+                 "--steps", str(PRETRAIN_STEPS)]
+#: the attention shape the pretrain path gives the kernel, in bf16:
+#: (B, Hq, Hkv, Sq, Skv, Dh, causal, window)
+FLASH_PATH = (10, 25, 5, 129, 129, 64, True, 1024)
+#: the reference's sweep (tests/test_kernels.py): (B, Hq, Hkv, Sq, Skv, Dh,
+#: causal, window), run in f32 and in bf16
+FLASH_SWEEP = ((1, 4, 1, 128, 128, 64, True, None),
+               (2, 8, 2, 256, 256, 64, True, None),
+               (1, 2, 2, 64, 64, 128, False, None),
+               (1, 4, 4, 100, 100, 80, True, None),
+               (2, 4, 2, 1, 300, 64, True, None),
+               (1, 4, 1, 256, 256, 64, True, 64),
+               (1, 4, 2, 64, 192, 64, True, None))
+#: the path's shape, a long windowed hymba shape and the Dh 96 / 128 archs'
+#: shapes, bf16: (B, Hq, Hkv, Sq, Skv, Dh, causal, window)
+FLASH_BF16 = (FLASH_PATH, (10, 25, 5, 128, 128, 64, True, 1024),
+              (1, 25, 5, 4096, 4096, 64, True, 1024),
+              (1, 32, 32, 704, 704, 96, True, None),
+              (1, 36, 4, 2048, 2048, 128, True, None))
+#: kernel vs plain attention: the reference's rtol = atol, by dtype
+#: (tests/test_kernels.py:108,118), and its gradient bound (:130)
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+FLASH_GRAD_TOL = 2e-3
+#: the losses of one full-size forward with and without the kernel
+FORWARD_RTOL = 1e-2
 
 
 def card_line() -> str:
@@ -294,19 +341,20 @@ def host_us(fn, reps: int = 200) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak: float = PEAK_FP32) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over the memory rate
-    or fp32 operations over the fp32 peak, whichever is larger."""
+    or operations over the peak for their type, whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32 * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def timed_row(label: str, kernel, plain, library, nbytes: float,
-              ops: float) -> dict:
+              ops: float, peak: float = PEAK_FP32) -> dict:
     """Time a kernel, its plain version and its library yardstick (None if
     there is none) on the card; print them beside the bound."""
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by = bound(nbytes, ops, peak)
     row = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
            "library_ms": None if library is None else time_ms(library),
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -384,6 +432,112 @@ def time_kernels() -> dict:
           f"{time_ms(lambda: one.fill_(1.0)):.4f} ms, host "
           f"{host_us(lambda: one.fill_(1.0)):.1f} us")
     return out
+
+
+def flash_inputs(shape, dtype, seed: int = 0):
+    """q, k, v on the card for a (B, Hq, Hkv, Sq, Skv, Dh, ...) shape."""
+    import torch
+
+    b, hq, hkv, sq, skv, dh = shape[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed + sq * skv + hq)
+    return [torch.randn(size, generator=g, device="cuda").to(dtype)
+            for size in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                         (b, hkv, skv, dh))]
+
+
+def check_flash() -> float:
+    """Phase 3, flash_attention against the plain attention: the
+    reference's sweep in f32 and bf16, and the path's and the larger archs'
+    shapes in bf16, within the reference's rtol = atol; then the gradient
+    through ops.flash_attention against the plain version's.  Returns the
+    max abs error at the pretrain path's shape."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    cases = [(c, dn) for dn in ("float32", "bfloat16") for c in FLASH_SWEEP]
+    cases += [(c, "bfloat16") for c in FLASH_BF16]
+    path_err = None
+    for shape, dname in cases:
+        causal, window = shape[6:]
+        q, k, v = flash_inputs(shape, getattr(torch, dname))
+        before = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        moved = fa.LAUNCHES["flash_attention"] - before
+        want = ref.attention(q, k, v, causal=causal, window=window).float()
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        tol = FLASH_TOL[dname]
+        excess = float((diff - tol * want.abs()).max())
+        print(f"check flash_attention {shape} {dname}: max abs err {err:.3e}, "
+              f"max(|err| - rtol |want|) {excess:.3e} (atol {tol:.0e}), "
+              f"launches +{moved}")
+        if got.dtype != q.dtype or not excess <= tol:
+            fail(f"flash_attention disagrees with the plain attention at "
+                 f"{shape} {dname}")
+        if moved != 1:
+            fail(f"flash_attention's launch counter moved by {moved}, not 1")
+        if shape == FLASH_PATH and dname == "bfloat16":
+            path_err = err
+        del q, k, v, got, want, diff
+    for shape in ((1, 4, 2, 64, 64, 64, True, None), FLASH_PATH):
+        causal, window = shape[6:]
+        q, k, v = (t.requires_grad_() for t in flash_inputs(shape,
+                                                            torch.float32))
+        got = torch.autograd.grad(ops.flash_attention(
+            q, k, v, causal=causal, window=window).square().sum(), (q, k, v))
+        want = torch.autograd.grad(ref.attention(
+            q, k, v, causal=causal, window=window).square().sum(), (q, k, v))
+        excess = max(float(((g - w).abs() - FLASH_GRAD_TOL * w.abs()).max())
+                     for g, w in zip(got, want))
+        print(f"check flash_attention gradient {shape} f32: "
+              f"max(|err| - rtol |want|) {excess:.3e} (atol "
+              f"{FLASH_GRAD_TOL:.0e})")
+        if not excess <= FLASH_GRAD_TOL:
+            fail(f"the gradient through ops.flash_attention disagrees with "
+                 f"the plain version's at {shape}")
+    torch.cuda.empty_cache()
+    return path_err
+
+
+def time_flash() -> dict:
+    """Phase 5, flash_attention at the pretrain path's shape (bf16): kernel,
+    plain version and the library yardstick F.scaled_dot_product_attention
+    (timed here, never called by the port), beside the bound: q, k, v read
+    and out written once over the memory rate, or 4 Dh operations per kept
+    (query, key) pair over the bf16 tensor-core peak.  Also the long
+    windowed hymba shape, printed only."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for shape in (FLASH_PATH, FLASH_BF16[2]):
+        b, hq, hkv, sq, skv, dh, causal, window = shape
+        q, k, v = flash_inputs(shape, torch.bfloat16)
+        mask = ref.attention_mask(sq, skv, causal, window, "cuda")
+        pairs = int(mask.sum())
+        nbytes = 2 * (2 * b * hq * sq * dh + 2 * b * hkv * skv * dh)
+        if window is not None and window < skv:     # the window hides keys
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        rows[shape] = timed_row(
+            f"flash_attention {shape} bf16 ({pairs} pairs)",
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+            lambda: ref.attention(q, k, v, causal=causal, window=window),
+            library, nbytes, 4 * b * hq * dh * pairs, PEAK_BF16)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows[FLASH_PATH]
 
 
 def report_rounds(out: dict, label: str, wall: float, launches: dict,
@@ -489,6 +643,129 @@ def run_pairwise(w) -> tuple[dict, float]:
         fail("pairwise_sq_dists on the run's client matrix disagrees with "
              "its plain version or has a diagonal that is not exactly 0")
     return launches, err
+
+
+def run_pretrain_path() -> dict:
+    """The pretrain path through the training entry point, counters reset
+    just before: hymba-1.5b in full with --flash, PRETRAIN_STEPS steps of
+    Adam.  flash_attention must launch once per attention layer per step
+    and no other kernel at all; every loss finite and the last below the
+    first.  Prints seconds per step, tokens/s and the peak memory; returns
+    the launches."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg = get("hymba-1.5b")
+    label = f"train {' '.join(PRETRAIN_ARGS)}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(PRETRAIN_ARGS)       # raises if the loss did not fall
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_s = out["losses"], out["step_s"]
+    args = train.build_parser().parse_args(PRETRAIN_ARGS)
+    tokens = args.batch_size * (args.seq_len + 1)
+    steady = step_s[1:] or step_s
+    per_step = sum(steady) / len(steady)
+    print(f"{label}: {wall:.1f} s, step seconds {[round(t, 4) for t in step_s]}"
+          f", {per_step:.4f} s/step after the first ({tokens / per_step:.0f} "
+          f"tokens/s), peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{launches}, losses {losses}")
+    expect_launches(label, launches,
+                    {"flash_attention": cfg.n_layers * PRETRAIN_STEPS})
+    if not (all(math.isfinite(x) for x in losses)
+            and len(losses) == PRETRAIN_STEPS and losses[-1] < losses[0]):
+        fail(f"{label}: losses {losses} are not finite or do not fall")
+    return launches
+
+
+def full_model():
+    """hymba-1.5b in full on the card (seed 0) and one batch of the pretrain
+    path's tokens (10 x 129)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tf
+
+    cfg = get("hymba-1.5b")
+    model = tf.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    device="cuda")
+    return model, {"tokens": torch.from_numpy(synthetic.lm_tokens(
+        10, 129, cfg.vocab, seed=0)).cuda()}
+
+
+def check_forward(model, batch) -> None:
+    """One forward of the full model with the flash kernel and with the
+    plain attention: the losses must agree within FORWARD_RTOL (the
+    reference's test_model_forward_with_flash_kernel_matches_xla at full
+    size)."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    losses = {}
+    with torch.no_grad():
+        for flash in (True, False):
+            layers.set_flash_kernel(flash)
+            losses[flash] = float(tf.loss_fn(model, batch))
+    layers.set_flash_kernel(False)
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    print(f"forward {model.cfg.name} {tuple(batch['tokens'].shape)}: loss "
+          f"with the kernel {losses[True]:.6f}, plain {losses[False]:.6f}, "
+          f"rel diff {rel:.3e} (bound {FORWARD_RTOL:.0e})")
+    if not rel <= FORWARD_RTOL:
+        fail("the full model's loss with the flash kernel disagrees with "
+             "the plain attention's")
+
+
+def profile_pretrain_step(model, batch) -> None:
+    """Where a pretrain step's time goes: the full model with the flash
+    kernel and Adam at PRETRAIN_LR; one warm-up step, one step timed plain,
+    one traced with torch.profiler: the device's busy share and its top
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+
+    layers.set_flash_kernel(True)
+    step_fn, opt = steps.make_train_step(model.cfg, optimizer="adam",
+                                         lr=float(PRETRAIN_LR))
+    state = opt.init(dict(model.named_parameters()))
+
+    def one_step():
+        step_fn(model, state, batch)
+        torch.cuda.synchronize()
+
+    one_step()                                       # warm-up
+    t0 = time.perf_counter()
+    one_step()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_step()
+    layers.set_flash_kernel(False)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels)
+    print(f"profile pretrain step: {wall:.4f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.1f}% of the step), {launches} device "
+          f"kernels")
+    for e in kernels[:8] + [e for e in kernels[8:] if "flash" in e.key]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:70]}")
 
 
 def event_ms(fn, reps: int = 5) -> float:
@@ -645,14 +922,21 @@ def main() -> int:
 
     errs = check_kernels()
     dist_errs = check_dist_kernels()
+    flash_err = check_flash()
     check_rounds()
     times = time_kernels()
+    times["flash_attention"] = time_flash()
     launches = run_main_path()
     sketch_launches, w = run_sketch_path()
     pair_launches, pair_err = run_pairwise(w)
     del w
     framework_scale()
     profile_round()
+    pretrain_launches = run_pretrain_path()
+    model, batch = full_model()
+    check_forward(model, batch)
+    profile_pretrain_step(model, batch)
+    del model, batch
 
     n, k, d = MAIN
     # each kernel's launches from the path it serves, its error at the
@@ -660,6 +944,8 @@ def main() -> int:
     launches.update({name: sketch_launches[name]
                      for name in ("sq_dists_to_points", "segment_sum")})
     launches["pairwise_sq_dists"] = pair_launches["pairwise_sq_dists"]
+    launches["flash_attention"] = pretrain_launches["flash_attention"]
+    errs["flash_attention"] = flash_err
     errs.update({
         "sq_dists_to_points": dist_errs[("sq_dists_to_points", n, k,
                                          SKETCH_DIM)],

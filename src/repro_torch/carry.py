@@ -2,10 +2,16 @@
 
 The reference keeps a model's parameters as a nested dict of arrays in its
 own layouts (``repro.models.cnn.init``: HWIO convolutions, (in, out) dense
-weights); the port keeps a flat dict of tensors in PyTorch layouts.  These
-two functions translate, given a model's ``layout``, so the tests can run
-both packages on the same weights.  They take and give numpy arrays (any
-array that ``numpy.asarray`` accepts on the way in).
+weights); the port keeps a flat dict of tensors in PyTorch layouts.
+:func:`params_from_jax` and :func:`params_to_jax` translate, given a model's
+``layout``, so the tests can run both packages on the same weights.
+
+The LM stack (``repro.models.transformer``) stacks its layers on a leading
+L axis; the port's :class:`~repro_torch.models.transformer.Transformer`
+keeps a module per layer.  :func:`transformer_from_jax` and
+:func:`transformer_to_jax` unstack and restack them and transpose the dense
+weights between (in, out) and (out, in).  All four take and give numpy
+arrays (any array that ``numpy.asarray`` accepts on the way in).
 """
 from __future__ import annotations
 
@@ -13,6 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import cnn
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
+
+#: the LM stack's dense weights: (in, out) in the reference, (out, in) here
+DENSE = frozenset({"wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wi",
+                   "in_proj", "x_proj", "dt_proj", "out_proj", "lm_head"})
 
 
 def params_from_jax(tree, layout=cnn.REF_LAYOUT,
@@ -43,4 +55,47 @@ def params_to_jax(params: dict[str, torch.Tensor],
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = t.contiguous().numpy()
+    return tree
+
+
+def _to_port(name: str, leaf) -> torch.Tensor:
+    t = torch.from_numpy(np.array(leaf))
+    return t.T.contiguous() if name in DENSE else t
+
+
+def _to_ref(name: str, t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.T if name in DENSE else t).contiguous().numpy()
+
+
+def transformer_from_jax(tree, cfg: ModelConfig,
+                         device: str | torch.device = "cpu") -> tf.Transformer:
+    """Reference LM parameter tree (layers stacked on axis 0) -> the port's
+    model on ``device``."""
+    def move(name, leaf):
+        return _to_port(name, leaf).to(device)
+
+    layers = [{sub: {k: move(k, v[i]) for k, v in leaves.items()}
+               for sub, leaves in tree["layers"].items()}
+              for i in range(cfg.n_layers)]
+    params = {"embed": move("embed", tree["embed"]),
+              "ln_f": {"scale": move("scale", tree["ln_f"]["scale"])},
+              "layers": layers}
+    if "lm_head" in tree:
+        params["lm_head"] = move("lm_head", tree["lm_head"])
+    return tf.Transformer(cfg, params)
+
+
+def transformer_to_jax(model: tf.Transformer) -> dict:
+    """The port's model -> reference LM parameter tree of numpy arrays."""
+    tree: dict = {"embed": _to_ref("embed", model.embed),
+                  "ln_f": {"scale": _to_ref("scale", model.ln_f["scale"])},
+                  "layers": {}}
+    for sub, leaves in model.layers[0].named_children():
+        tree["layers"][sub] = {
+            k: np.stack([_to_ref(k, getattr(block, sub)[k])
+                         for block in model.layers])
+            for k in leaves}
+    if hasattr(model, "lm_head"):
+        tree["lm_head"] = _to_ref("lm_head", model.lm_head)
     return tree

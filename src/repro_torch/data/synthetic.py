@@ -8,6 +8,9 @@ client splits) while being fully deterministic from a seed.
 
 ``mnist_idx(...)`` — loader for the real MNIST idx files; the training
 driver uses them when they are present under ``data/mnist/``.
+
+``lm_tokens(...)`` — Zipf token sequences with a bigram twist for LM
+pretraining, bit-identical to the reference's (numpy ``default_rng``).
 """
 from __future__ import annotations
 
@@ -116,3 +119,20 @@ def mnist_idx(root: str = "data/mnist"):
     xtr = (out["xtr"].astype(np.float32) / 255.0)[..., None]
     xte = (out["xte"].astype(np.float32) / 255.0)[..., None]
     return (xtr, out["ytr"].astype(np.int32)), (xte, out["yte"].astype(np.int32))
+
+
+# --- synthetic LM token stream ------------------------------------------------
+
+def lm_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed token sequences with a deterministic bigram twist so
+    that a real LM can measurably reduce loss below unigram entropy."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = 1.0 / ranks ** 1.1
+    p /= p.sum()
+    toks = rng.choice(vocab, size=(n_seqs, seq_len), p=p).astype(np.int32)
+    # bigram structure: every even position partially determines the next token
+    det = (toks[:, :-1:2] * 7 + 13) % vocab
+    mask = rng.random(det.shape) < 0.5
+    toks[:, 1::2] = np.where(mask, det, toks[:, 1::2])
+    return toks

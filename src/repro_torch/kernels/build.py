@@ -26,7 +26,7 @@ BUILD_DIR = HERE / "_build"
 
 #: the CUDA sources, relative to this directory, and the header they share
 SOURCES = ("csrc/fused_round.cu", "csrc/pairwise_dist.cu",
-           "csrc/segment_mean.cu")
+           "csrc/segment_mean.cu", "csrc/flash_attention.cu")
 HEADERS = ("csrc/common.cuh",)
 
 FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

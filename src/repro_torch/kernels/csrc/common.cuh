@@ -1,5 +1,5 @@
 // Code shared by the port's CUDA sources (fused_round.cu, pairwise_dist.cu,
-// segment_mean.cu).  Each source is a shared library of its own and compiles
+// segment_mean.cu, flash_attention.cu).  Each source is a shared library of its own and compiles
 // its own copy of what is here.
 #pragma once
 

@@ -3,14 +3,17 @@
 A CUDA tensor goes to the hand-written kernel, whose wrapper raises if the
 build or the launch fails; a CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`.  There is no fallback from one to the other.
+:func:`flash_attention` is differentiable: kernel forward, and the gradient
+of the plain version as its backward, as the reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import fused_round, pairwise_dist, ref, segment_mean
+from repro_torch.kernels import (flash_attention as _fa, fused_round,
+                                 pairwise_dist, ref, segment_mean)
 
-_WRAPPERS = (fused_round, pairwise_dist, segment_mean)
+_WRAPPERS = (fused_round, pairwise_dist, segment_mean, _fa)
 
 
 def reset_launch_counts() -> None:
@@ -65,3 +68,36 @@ def segment_sum(mix: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _on_card(w):
         return segment_mean.segment_sum(mix, w)
     return ref.segment_sum(mix, w)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; the backward recomputes the plain version and takes
+    its gradient (the reference has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        if _on_card(q):
+            return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.args
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.attention(*inputs, causal=causal, window=window,
+                                scale=scale)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention, q (B, Hq, Sq, Dh), k and v (B, Hkv, Skv, Dh) -> (B, Hq,
+    Sq, Dh) in q's dtype: the kernel forward on the card, the plain version
+    on the CPU; differentiable in q, k and v through the plain version."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)

@@ -41,3 +41,41 @@ def fused_coalition_stats(w: torch.Tensor, m: torch.Tensor,
     b = m.float() @ w.float()
     theta = torch.mean(b, dim=0)
     return b, theta, sq_dists_to_points(w, b)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Reference multi-head attention with GQA broadcast.
+
+    q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh) with Hq % Hkv == 0.  Queries
+    sit at the end of the K/V timeline.  ``window``: a query at position p
+    sees keys after p - window.  Returns (B, Hq, Sq, Dh) in q.dtype; softmax
+    in float32.  A row that sees no key is NaN here (the kernel writes 0).
+    """
+    sq, dh = q.shape[2], q.shape[3]
+    group = q.shape[1] // k.shape[1]
+    skv = k.shape[2]
+    if scale is None:
+        scale = dh ** -0.5
+    kq = torch.repeat_interleave(k, group, dim=1).float()
+    vq = torch.repeat_interleave(v, group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    mask = attention_mask(sq, skv, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vq).to(q.dtype)
+
+
+def attention_mask(sq: int, skv: int, causal: bool, window: int | None,
+                   device) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query sees, queries occupying the
+    last Sq slots of the Skv timeline."""
+    qpos = torch.arange(sq, device=device) + (skv - sq)
+    kpos = torch.arange(skv, device=device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask

@@ -1,0 +1,36 @@
+"""Step functions of the LM path (``repro.launch.steps``).
+
+  make_train_step — loss, gradient, and an SGD-momentum or Adam update
+
+The prefill, decode and FL-round steps wait for the serving and
+sharding slices (ROADMAP queue A items 9-11).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import optimizers as opt_mod
+
+
+def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
+                    lr: float = 1e-3) -> tuple[Callable, opt_mod.Optimizer]:
+    """``train_step(model, opt_state, batch) -> loss``: one step that
+    updates the model's parameters and ``opt_state`` in place (the
+    optimizer's ``step``); ``optimizer`` is ``adam``, or SGD with momentum
+    0.9 for any other name, as in the reference."""
+    opt = (opt_mod.adam(lr) if optimizer == "adam"
+           else opt_mod.sgd(lr, momentum=0.9))
+
+    def train_step(model: tf.Transformer, opt_state: dict,
+                   batch: dict) -> torch.Tensor:
+        params = dict(model.named_parameters())
+        loss = tf.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.step(params, dict(zip(params, grads)), opt_state)
+        return loss.detach()
+
+    return train_step, opt

@@ -1,8 +1,17 @@
-"""Federated training driver (``--mode fl``) of the PyTorch port.
+"""Training entry point of the PyTorch port: ``--mode fl`` (federated) and
+``--mode pretrain`` (LM pretraining).
 
-The paper's experiment: federated training of the MNIST-surrogate CNN with
-coalition aggregation (Algorithm 1).  It prints the reference's JSON
-summary keys plus ``device``.
+``--mode fl`` is the paper's experiment: federated training of the
+MNIST-surrogate CNN with coalition aggregation (Algorithm 1).  It prints the
+reference's JSON summary keys plus ``device``.
+
+``--mode pretrain`` trains an LM of the zoo (``--arch``, default hymba-1.5b
+at full size; ``--reduced`` for the 2-layer f32 variant) on
+``synthetic.lm_tokens`` with Adam (``--optimizer adam``) or SGD momentum
+0.9, ``--steps`` steps of ``--batch-size`` sequences of ``--seq-len`` + 1
+tokens.  ``--flash`` routes attention through the hand-written flash
+kernel.  It prints the reference's summary keys plus ``device`` and fails,
+as the reference does, if the last loss is not below the first.
 
 The run is on a CUDA card unless the caller passes ``--device cpu``; without
 a card and without ``--device cpu`` it exits non-zero.  The f32 CNN runs
@@ -17,6 +26,10 @@ default 256).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode pretrain --flash \
+      --lr 1e-3 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --mode pretrain \
+      --device cpu --reduced --steps 5 --lr 1e-3
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
       --method coalition_topk --sketch rproj --sketch-dim 256
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl --device cpu \
@@ -143,11 +156,59 @@ def run_fl(args) -> dict:
     return out
 
 
+def run_pretrain(args) -> dict:
+    from repro_torch.configs import get, reduced
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    device = resolve_device(args.device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers.set_flash_kernel(args.flash)
+    cfg = get(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = tf.init(torch.Generator(device=device).manual_seed(args.seed),
+                    cfg, device=device)
+    params = dict(model.named_parameters())
+    print(f"pretraining {cfg.name}: "
+          f"{sum(p.numel() for p in params.values()):,} params")
+
+    step_fn, opt = steps_mod.make_train_step(cfg, optimizer=args.optimizer,
+                                             lr=args.lr)
+    opt_state = opt.init(params)
+    toks = torch.from_numpy(synthetic.lm_tokens(
+        args.batch_size * args.steps, args.seq_len + 1, cfg.vocab,
+        seed=args.seed)).to(device)
+    losses, step_s = [], []
+    t0 = time.time()
+    for i in range(args.steps):
+        t_step = time.perf_counter()
+        batch = {"tokens": toks[i * args.batch_size:(i + 1) * args.batch_size]}
+        losses.append(float(step_fn(model, opt_state, batch)))  # synchronises
+        step_s.append(time.perf_counter() - t_step)
+        if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
+            print(f"step {i:5d}  loss {losses[-1]:.4f}  "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    out = {"mode": "pretrain", "arch": cfg.name, "losses": losses,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "wall_s": round(time.time() - t0, 1),
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+           "step_s": step_s}
+    print(json.dumps({k: v for k, v in out.items() if k != "step_s"},
+                     indent=1, default=float))
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training did not reduce loss: {losses}")
+    print(f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--mode", default="fl", choices=["fl"],
-                    help="fl: federated training (pretrain waits for ROADMAP "
-                         "queue A item 11)")
+    ap.add_argument("--mode", default="fl", choices=["fl", "pretrain"])
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; exits "
                          "non-zero without a card unless this is cpu)")
@@ -181,6 +242,17 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=sorted(zoo_mod.available_models()))
     ap.add_argument("--engine", default="scan", choices=["scan", "python"],
                     help="both run the same Python round loop in PyTorch")
+    # pretrain
+    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--optimizer", default="adam",
+                    help="adam, or SGD with momentum 0.9 for any other name")
+    ap.add_argument("--flash", action="store_true",
+                    help="route attention through the hand-written flash "
+                         "kernel")
+    # shared
     ap.add_argument("--batch-size", type=int, default=10)
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--seed", type=int, default=0)
@@ -188,7 +260,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    return run_fl(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return run_fl(args) if args.mode == "fl" else run_pretrain(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,127 @@
+"""Mamba-1 selective SSM block (falcon-mamba / hymba SSM heads), the
+training forward of ``repro.models.ssm``.
+
+The reference keeps the (B, S, d_inner, N) discretised tensors out of memory
+by an outer scan over sequence chunks, each rematerialised under
+``jax.checkpoint``, with an exact inner scan that advances
+
+    h_t = exp(Δ_t·A)·h_{t-1} + Δ_t·B_t·x_t,   y_t = <C_t, h_t> + D·x_t.
+
+Here the outer scan is a Python loop over chunks, each under
+``torch.utils.checkpoint`` (non-reentrant) while gradients are on, and the
+inner scan a Python loop of two launches a step (``addcmul`` and a batched
+product).  The reference has no Pallas kernel here, so neither has the
+port; the loop is plain PyTorch.  Weights are (out, in) like every dense
+weight of the port; ``conv_w`` stays (k, d_inner) as in the reference.
+``ssm_step`` and the prefill from a carried state wait for the serving slice
+(ROADMAP queue A item 11).
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, dtype_of
+
+Params = Mapping[str, torch.Tensor]
+
+
+def ssm_init(generator: torch.Generator, cfg: ModelConfig,
+             device: str | torch.device = "cpu") -> dict:
+    dt = dtype_of(cfg)
+    d, di, n, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    a = torch.arange(1, n + 1, dtype=torch.float32,
+                     device=device)[None, :].repeat(di, 1)
+    conv_w = torch.randn((cfg.ssm_conv, di), generator=generator,
+                         device=generator.device) * cfg.ssm_conv ** -0.5
+    return {
+        "in_proj": dense_init(generator, d, 2 * di, dt, device=device),
+        "conv_w": conv_w.to(device=device, dtype=dt),
+        "conv_b": torch.zeros((di,), dtype=dt, device=device),
+        "x_proj": dense_init(generator, di, dr + 2 * n, dt, device=device),
+        "dt_proj": dense_init(generator, dr, di, dt, device=device),
+        "dt_bias": torch.zeros((di,), dtype=torch.float32, device=device),
+        "A_log": torch.log(a),                                 # (di, N) f32
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": dense_init(generator, di, d, dt, scale=di ** -0.5,
+                               device=device),
+    }
+
+
+def _projections(params: Params, cfg: ModelConfig, u: torch.Tensor):
+    """u: (B, S, di) post-conv -> delta (B, S, di) f32, B and C (B, S, N)."""
+    n, dr = cfg.ssm_state, cfg.dt_rank_
+    xdbc = F.linear(u, params["x_proj"]).float()               # (B, S, dr+2N)
+    dt_in, bmat, cmat = torch.split(xdbc, [dr, n, n], dim=-1)
+    delta = F.softplus(F.linear(dt_in, params["dt_proj"].float())
+                       + params["dt_bias"])                    # (B, S, di)
+    return delta, bmat, cmat
+
+
+def _causal_conv(params: Params, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d from a zero history.  x: (B, S, di)."""
+    kk, s = cfg.ssm_conv, x.shape[1]
+    pad = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)                            # (B, S+k-1, di)
+    w = params["conv_w"].float()                               # (k, di)
+    out = xp[:, 0:s].float() * w[0]
+    for i in range(1, kk):
+        out = out + xp[:, i:i + s].float() * w[i]
+    out = out + params["conv_b"].float()
+    return out.to(x.dtype)
+
+
+def _chunk(h, dl, bm, cm, uu, a):
+    """One chunk of the recurrence.  h (B, di, N); dl, uu (B, L, di); bm, cm
+    (B, L, N); a (di, N).  Returns the last h and y (B, L, di).  The steps'
+    slices come from ``unbind``, whose backward is one stack: indexing
+    ``da[:, t]`` instead would make autograd fill and add a full
+    (B, L, di, N) gradient for every step."""
+    da = torch.exp(dl[..., None] * a)                          # (B, L, di, N)
+    dbu = (dl * uu)[..., None] * bm[..., None, :]              # (B, L, di, N)
+    ys = []
+    for da_t, dbu_t, c_t in zip(da.unbind(1), dbu.unbind(1),
+                                cm[..., None].unbind(1)):
+        h = torch.addcmul(dbu_t, h, da_t)
+        ys.append(torch.bmm(h, c_t)[..., 0])
+    return h, torch.stack(ys, dim=1)
+
+
+def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+              chunk: int = 64) -> torch.Tensor:
+    """Training forward from a zero state.  x: (B, S, d) -> (B, S, d); the
+    recurrence in f32, the output in x's dtype."""
+    b, s, _ = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    u, z = torch.chunk(F.linear(x, params["in_proj"]), 2, dim=-1)
+    u = _causal_conv(params, cfg, u)
+    u = F.silu(u.float()).to(x.dtype)
+    delta, bmat, cmat = _projections(params, cfg, u)
+    a = -torch.exp(params["A_log"])                            # (di, N)
+    uf = u.float()
+
+    chunk = min(chunk, s)
+    sp = math.ceil(s / chunk) * chunk
+    # padded steps have delta = 0: exp(0 * A) = 1 and no input, so h is
+    # unchanged by them
+    pads = [F.pad(t, (0, 0, 0, sp - s)) for t in (delta, bmat, cmat, uf)]
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, sp, chunk):
+        args = [t[:, c0:c0 + chunk] for t in pads]
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_chunk, h, *args, a, use_reentrant=False)
+        else:
+            h, y = _chunk(h, *args, a)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + params["D"] * uf
+    y = y * F.silu(z.float())
+    return F.linear(y.to(x.dtype), params["out_proj"])

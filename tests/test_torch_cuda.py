@@ -11,13 +11,20 @@ version compute in f32 from the same inputs (bf16 W is upcast on load by
 both), so both dtypes are held to 5e-6 of the max.  The distance and
 segment-sum kernels run at the main path's shape, at the sketch widths
 D = S in {64, 256, 1024}, at N = 64, K = 8 and in bf16, and with W and the
-points in different dtypes.
+points in different dtypes.  The attention kernel is held to the plain
+attention with the reference's bounds (rtol = atol = 2e-4 in f32, 2e-2 in
+bf16; tests/test_kernels.py) at the reference's sweep and the pretrain
+path's shape, on contiguous inputs and on the model's transposed views;
+the gradient through ``ops.flash_attention`` to the plain version's at
+2e-3.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_round as tfr
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segment_mean as tsm
@@ -100,3 +107,75 @@ def test_cuda_distance_kernels_match_plain_versions(n, k, d, wdt, pdt):
     assert torch.equal(pairwise, pairwise.T)
     assert torch.all(torch.diagonal(pairwise) == 0)
     assert torch.all(to_points >= 0) and torch.all(pairwise >= 0)
+
+
+#: (B, Hq, Hkv, Sq, Skv, Dh, causal, window, dtype)
+FLASH_SHAPES = [(1, 4, 1, 128, 128, 64, True, None, "float32"),
+                (1, 2, 2, 64, 64, 128, False, None, "float32"),
+                (1, 4, 4, 100, 100, 80, True, None, "float32"),
+                (2, 4, 2, 1, 300, 64, True, None, "float32"),
+                (1, 4, 1, 256, 256, 64, True, 64, "float32"),
+                (1, 4, 2, 64, 192, 64, True, None, "float32"),
+                (1, 8, 8, 70, 70, 96, True, None, "bfloat16"),
+                (10, 25, 5, 129, 129, 64, True, 1024, "bfloat16"),
+                (10, 25, 5, 129, 129, 64, True, 1024, "float32")]
+
+
+def _flash_inputs(shape, seed=0):
+    b, hq, hkv, sq, skv, dh = shape[:6]
+    rng = np.random.default_rng(seed + sq * skv + hq)
+    dtype = getattr(torch, shape[-1])
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dtype).cuda()
+            for s in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("views", [False, True])
+def test_cuda_flash_attention_matches_plain_version(shape, views):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    causal, window, dtype = shape[6:]
+    q, k, v = _flash_inputs(shape)
+    if views:   # (B, S, H, Dh) storage seen as (B, H, S, Dh), as the model
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.is_contiguous()
+    want = tref.attention(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_gradient_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.requires_grad_() for t in
+               _flash_inputs((1, 4, 2, 64, 64, 64, True, None, "float32")))
+    got = torch.autograd.grad(tops.flash_attention(q, k, v).square().sum(),
+                              (q, k, v))
+    want = torch.autograd.grad(tref.attention(q, k, v).square().sum(),
+                               (q, k, v))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _flash_inputs((1, 4, 2, 16, 16, 64, True, None, "float32"))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v)

@@ -26,6 +26,7 @@ from repro.kernels import ref as jref
 from repro.kernels import segment_mean as jsm
 from repro_torch.core import distance as tdist
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_round as tfr
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import segment_mean as tsm
@@ -148,10 +149,12 @@ def test_cpu_tensors_take_the_plain_version():
     ops.pairwise_sq_dists(wt)
     ops.sq_dists_to_points(wt, wt[:2])
     ops.segment_sum(mt, wt)
+    q = torch.from_numpy(w[:4, :256].reshape(1, 4, 4, 64))
+    ops.flash_attention(q, q[:, :2], q[:, :2])
     assert ops.launch_counts() == before
     assert set(before) == {"center_sq_dists", "fused_coalition_stats",
                            "pairwise_sq_dists", "sq_dists_to_points",
-                           "segment_sum"}
+                           "segment_sum", "flash_attention"}
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -168,11 +171,15 @@ def test_wrappers_refuse_cpu_tensors():
         tpd.sq_dists_to_points(wt, wt[:2])
     with pytest.raises(ValueError, match="CUDA"):
         tsm.segment_sum(mt, wt)
+    q = torch.from_numpy(w[:4, :256].reshape(1, 4, 4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, q, q)
 
 
 def test_reset_launch_counts_zeroes_every_kernel():
     tpd.LAUNCHES["pairwise_sq_dists"] += 1
     tsm.LAUNCHES["segment_sum"] += 1
+    tfa.LAUNCHES["flash_attention"] += 1
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
