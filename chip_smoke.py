@@ -8,17 +8,20 @@ In order, it
      nvcc versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, each its own library, all started together) and prints the build
-     time and the ptxas report;
+     time, the ptxas report and, from ``cudaFuncGetAttributes``, each
+     ``flash_attention`` kernel's registers a thread, shared memory a CTA and
+     local memory (spills) a thread;
   3. holds each kernel against its plain PyTorch version on the card: the
      fused-round kernels at the main path's shape (N = 10, K = 3,
      D = 582,026, f32), at a ragged shape with larger N and K, and at a
      small bf16 shape; the distance and segment-sum kernels at those shapes
-     and at the sketch widths D = S in {64, 256, 1024}, ``pairwise_sq_dists``
+     and at the sketch widths D = S in {1, 64, 255, 256, 1024, 2048} (f32,
+     and bf16 at 256), ``pairwise_sq_dists``
      with its diagonal exactly 0.  The max error must stay within 5e-6 of
      the max for both dtypes (kernel and plain version upcast the same bf16
      values to f32), and the launch counters must move.  ``flash_attention``
      at the reference's sweep in f32 and bf16, at the pretrain path's shape
-     and at longer and wider (Dh 96, 128) shapes in bf16, within the
+     and at ragged, longer and wider (Dh 96, 128) shapes in bf16, within the
      reference's rtol = atol (2e-4 f32, 2e-2 bf16), and its gradient
      through ``ops.flash_attention`` within 2e-3 of the plain version's;
   4. holds whole rounds on the ``cuda`` backend against the ``stream``
@@ -30,7 +33,8 @@ In order, it
      its bound, its plain version and a one-call library yardstick, and the
      host time a wrapper call takes to enqueue (``flash_attention`` in bf16
      at the pretrain path's shape, against
-     ``F.scaled_dot_product_attention``, and at S = 4096);
+     ``F.scaled_dot_product_attention``, and at S = 4096 with window 1024,
+     each with the wrapper's host time beside the kernel's device time);
   6. runs ``repro_torch.launch.train --mode fl`` at its defaults with
      ``--rounds 3`` on the card, with the launch counters set to 0 just
      before: each fused-round kernel must have launched once per server step
@@ -91,8 +95,10 @@ SKETCH_ROUNDS = 2
 SKETCH_ARGS = ["--mode", "fl", "--method", "coalition_topk", "--sketch",
                "rproj", "--sketch-dim", "256"]
 #: the distance and segment-sum kernels' checks: (N, K, D, dtype name)
-DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 64, "float32"),
+DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 1, "float32"),
+               (10, 3, 64, "float32"), (10, 3, 255, "float32"),
                (10, 3, 256, "float32"), (10, 3, 1024, "float32"),
+               (10, 3, 2048, "float32"), (10, 3, 256, "bfloat16"),
                (64, 8, 1_000_003, "float32"), (16, 4, 70_001, "bfloat16"))
 #: the sketch width of the sketch path, and the framework-scale D
 SKETCH_DIM = 256
@@ -133,10 +139,13 @@ FLASH_SWEEP = ((1, 4, 1, 128, 128, 64, True, None),
                (2, 4, 2, 1, 300, 64, True, None),
                (1, 4, 1, 256, 256, 64, True, 64),
                (1, 4, 2, 64, 192, 64, True, None))
-#: the path's shape, a long windowed hymba shape and the Dh 96 / 128 archs'
-#: shapes, bf16: (B, Hq, Hkv, Sq, Skv, Dh, causal, window)
+#: the long windowed hymba shape that is timed beside the path's
+FLASH_LONG = (1, 25, 5, 4096, 4096, 64, True, 1024)
+#: the path's shape, the long windowed hymba shape, ragged q-tiles against a
+#: longer timeline and the Dh 96 / 128 archs' shapes, bf16: (B, Hq, Hkv, Sq,
+#: Skv, Dh, causal, window)
 FLASH_BF16 = (FLASH_PATH, (10, 25, 5, 128, 128, 64, True, 1024),
-              (1, 25, 5, 4096, 4096, 64, True, 1024),
+              FLASH_LONG, (2, 8, 2, 17, 300, 64, True, None),
               (1, 32, 32, 704, 704, 96, True, None),
               (1, 36, 4, 2048, 2048, 128, True, None))
 #: kernel vs plain attention: the reference's rtol = atol, by dtype
@@ -358,7 +367,7 @@ def timed_row(label: str, kernel, plain, library, nbytes: float,
     row = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
            "library_ms": None if library is None else time_ms(library),
            "bound_ms": bound_ms, "bound_by": bound_by}
-    enqueue = host_us(kernel)
+    enqueue = row["host_us"] = host_us(kernel)
     lib = row["library_ms"]
     print(f"time {label}, L2 flushed: kernel {row['ms']:.4f} ms "
           f"({nbytes / row['ms'] / 1e6:.1f} GB/s), plain "
@@ -432,6 +441,23 @@ def time_kernels() -> dict:
           f"{time_ms(lambda: one.fill_(1.0)):.4f} ms, host "
           f"{host_us(lambda: one.fill_(1.0)):.1f} us")
     return out
+
+
+def print_flash_attributes() -> None:
+    """Each flash_attention kernel's registers, shared memory and spills, as
+    the CUDA runtime reports them (cudaFuncGetAttributes)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in fa.HEAD_DIMS:
+            a = fa.kernel_attributes(dtype, dh)
+            print(f"flash_attention {str(dtype)[6:]} Dh={dh}: {a['regs']} "
+                  f"registers a thread, {a['threads']} threads, shared "
+                  f"memory {a['static_smem']} static + {a['dynamic_smem']} "
+                  f"dynamic bytes a CTA, {a['local_bytes']} bytes of local "
+                  f"memory (spills) a thread")
 
 
 def flash_inputs(shape, dtype, seed: int = 0):
@@ -516,7 +542,7 @@ def time_flash() -> dict:
     from repro_torch.kernels import ref
 
     rows = {}
-    for shape in (FLASH_PATH, FLASH_BF16[2]):
+    for shape in (FLASH_PATH, FLASH_LONG):
         b, hq, hkv, sq, skv, dh, causal, window = shape
         q, k, v = flash_inputs(shape, torch.bfloat16)
         mask = ref.attention_mask(sq, skv, causal, window, "cuda")
@@ -535,6 +561,12 @@ def time_flash() -> dict:
             lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
             lambda: ref.attention(q, k, v, causal=causal, window=window),
             library, nbytes, 4 * b * hq * dh * pairs, PEAK_BF16)
+        enqueue = rows[shape]["host_us"]
+        device = rows[shape]["ms"] * 1e3
+        print(f"flash_attention {shape} bf16: wrapper host time {enqueue:.1f} "
+              f"us a call against kernel device time {device:.1f} us: "
+              f"{'the host' if enqueue > device else 'the device'} is the "
+              f"limit of back-to-back calls")
         del q, k, v
     torch.cuda.empty_cache()
     return rows[FLASH_PATH]
@@ -919,6 +951,7 @@ def main() -> int:
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(build.ptxas_report().strip())
+    print_flash_attributes()
 
     errs = check_kernels()
     dist_errs = check_dist_kernels()

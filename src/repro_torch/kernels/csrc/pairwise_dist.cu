@@ -10,12 +10,15 @@
 // Bound.  Each element of W costs about 3K (or 3N/2) floating-point operations
 // per 4 bytes read, far below the fp32 ridge: both kernels are bound by
 // device-memory bytes, N*D*sizeof(W) (+ K*D*sizeof(P)) read once.  At the
-// sketch widths (D = S = 64..1024) the whole input is a few KB and a call is
-// bound by its launch.
+// sketch widths (D = S = 64..2048) the whole input is a few KB (13 KB at
+// N = 10, K = 3, S = 256 f32: 0.004 us at 3.35 TB/s) and a call is bound by
+// its launch.
 //
-// Design.  The TPU kernels walk D in order into one resident accumulator, in
-// the Gram form.  Here, as in fused_round.cu, every CTA takes a strided set of
-// kTile-column tiles instead, so all SMs stream at once:
+// Design, full width (D > kSmallD for sq_dists_to_points; every D for
+// pairwise_sq_dists).  The TPU kernels walk D in order into one resident
+// accumulator, in the Gram form.  Here, as in fused_round.cu, every CTA
+// takes a strided set of kTile-column tiles instead, so all SMs stream at
+// once:
 //   1. stage the tile of W (and of P) in shared memory as f32, zero past the
 //      ragged edge of D (zero columns add nothing to any sum);
 //   2. accumulate sum (x - y)^2 per (row pair, lane) item in registers, in the
@@ -26,13 +29,26 @@
 // (npairs,) partial; a second launch sums the partials of all CTAs in a fixed
 // tree order, clamps at 0 and writes the output (both halves of the symmetric
 // matrix, and its zero diagonal).  No float atomics: runs are reproducible.
-// When D is at most kOneCtaTiles tiles (the sketch widths) a single CTA walks
-// all of them and writes the output itself: one launch, no partials.
+// pairwise_sq_dists at D <= kSmallD runs a single CTA that walks every tile
+// and writes the output itself: one launch, no partials.
+//
+// Design, sketch widths (sq_dists_to_points at D <= kSmallD: warp_dists).
+// A single CTA staging all N + K rows and reducing through shared memory is
+// one chain of dependent steps on one SM, ~5 us above the launch floor for
+// 13 KB.  Instead one warp owns one (i, j) pair, kSmallWarps warps a CTA,
+// ceil(N K / kSmallWarps) CTAs, one launch: each lane reads 8 columns of w_i
+// and of p_j at a time straight from device memory (16-byte vectors when
+// both rows are 16-byte aligned, i.e. D % 8 == 0 and aligned bases; single
+// elements otherwise), sums (x - y)^2 in f32 over its columns in a fixed
+// order, and a fixed __shfl_xor tree reduces the warp; lane 0 clamps at 0
+// and writes.  No shared memory, no __syncthreads, no atomics: deterministic.
 //
 // Limits (the entry points return cudaErrorInvalidValue beyond them):
 //   sq_dists_to_points  1 <= N <= kMaxN, 1 <= K <= kMaxK, N*K <= kMaxPairs;
 //   pairwise_sq_dists   1 <= N <= kMaxPairwiseN (N(N-1)/2 <= kMaxPairs);
 //   D >= 1.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -46,7 +62,8 @@ constexpr int kMaxPairs = kThreads * kMaxItems;
 constexpr int kMaxN = 128;
 constexpr int kMaxK = 64;
 constexpr int kMaxPairwiseN = 64;         // 64 * 63 / 2 = 2016 pairs
-constexpr int kOneCtaTiles = 8;           // D <= 2048: one CTA, one launch
+constexpr long long kSmallD = 8 * kTile;  // the sketch widths, D <= 2048
+constexpr int kSmallWarps = 8;            // pairs of a warp_dists CTA
 
 __host__ __device__ inline int num_pairs(bool pairwise, int n, int k) {
   return pairwise ? n * (n - 1) / 2 : n * k;
@@ -199,6 +216,74 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Eight consecutive elements from p as f32: two float4 or one uint4 of bf16.
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// sq_dists_to_points at D <= kSmallD: warp w of CTA c owns pair
+// c * kSmallWarps + w, (i, j) row-major; out (n, k).  vec: both operands'
+// rows are 16-byte aligned (D % 8 == 0, aligned bases).
+template <typename TW, typename TP>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+    warp_dists(const TW* __restrict__ w, const TP* __restrict__ p,
+               float* __restrict__ out, int n, int d, int k, int vec) {
+  const int pair = blockIdx.x * kSmallWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (pair >= n * k) return;                // the whole warp leaves
+  const TW* x = w + static_cast<long long>(pair / k) * d;
+  const TP* y = p + static_cast<long long>(pair % k) * d;
+  float acc = 0.f;
+  if (vec) {
+    for (int c = 8 * lane; c < d; c += 8 * 32) {
+      float xv[8], yv[8];
+      load8(x + c, xv);
+      load8(y + c, yv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float diff = xv[e] - yv[e];
+        acc = fmaf(diff, diff, acc);
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float diff = to_f32(x[c]) - to_f32(y[c]);
+      acc = fmaf(diff, diff, acc);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) out[pair] = fmaxf(acc, 0.f);
+}
+
+template <typename TW, typename TP>
+cudaError_t launch_small(const void* w, const void* p, float* out, int n,
+                         long long d, int k, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const int ctas = (n * k + kSmallWarps - 1) / kSmallWarps;
+  warp_dists<TW, TP><<<ctas, kSmallWarps * 32, 0, stream>>>(
+      static_cast<const TW*>(w), static_cast<const TP*>(p), out, n,
+      static_cast<int>(d), k, vec);
+  return cudaGetLastError();
+}
+
 bool shape_ok(bool pairwise, int n, long long d, int k) {
   if (d < 1 || n < 1) return false;
   if (pairwise) return n <= kMaxPairwiseN;
@@ -217,14 +302,14 @@ cudaError_t prepare(int n, int k, int device, size_t* smem) {
 
 template <typename TW, typename TP, bool PAIRWISE>
 cudaError_t grid_for(int n, long long d, int k, int device, int* grid) {
+  if (d <= kSmallD || num_pairs(PAIRWISE, n, k) == 0) {
+    *grid = 1;
+    return cudaSuccess;
+  }
   size_t smem = 0;
   cudaError_t err = prepare<TW, TP, PAIRWISE>(n, k, device, &smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (d + kTile - 1) / kTile;
-  if (ntiles <= kOneCtaTiles || num_pairs(PAIRWISE, n, k) == 0) {
-    *grid = 1;
-    return cudaSuccess;
-  }
   return fill_grid(tile_dists<TW, TP, PAIRWISE>, kThreads, smem, device,
                    ntiles, grid);
 }
@@ -289,6 +374,14 @@ int pd_sq_dists_to_points(const void* w, int w_bf16, const void* p,
                           void* stream) {
   if (!shape_ok(false, n, d, k) || grid < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= kSmallD) {
+    if (w_bf16) {
+      return p_bf16 ? launch_small<bf16, bf16>(w, p, out, n, d, k, device, s)
+                    : launch_small<bf16, float>(w, p, out, n, d, k, device, s);
+    }
+    return p_bf16 ? launch_small<float, bf16>(w, p, out, n, d, k, device, s)
+                  : launch_small<float, float>(w, p, out, n, d, k, device, s);
+  }
   if (w_bf16) {
     return p_bf16 ? launch<bf16, bf16, false>(w, p, partials, out, n, d, k,
                                               grid, device, s)

@@ -3,14 +3,17 @@
 ``flash_attention`` replaces the Pallas TPU kernel of
 ``repro/kernels/flash_attention.py``: online-softmax attention with GQA, an
 optional causal mask and an optional sliding window, queries at the end of
-the K/V timeline, forward only.  The source note in
-``csrc/flash_attention.cu`` gives the design and the limits.
+the K/V timeline, forward only.  bf16 runs on the tensor cores
+(``mma.sync``, K and V staged by ``cp.async``), f32 on the CUDA cores; the
+source note in ``csrc/flash_attention.cu`` gives the design and the limits.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 strides, allocates the output with ``torch.empty``, launches on the current
 stream and raises if the launch fails.  q, k and v may be views whose last
 axis is contiguous (the model's heads are transposed views); the output is
-contiguous.  It adds one to :data:`LAUNCHES` per launch.  The plain version
+contiguous.  In bf16 every pointer and outer stride must be 16-byte
+aligned (``cp.async`` copies 16-byte rows); the wrapper raises otherwise.
+It adds one to :data:`LAUNCHES` per launch.  The plain version
 is :func:`repro_torch.kernels.ref.attention`; the gradient is taken through
 it by :func:`repro_torch.kernels.ops.flash_attention`.
 """
@@ -46,8 +49,33 @@ def _load() -> ctypes.CDLL:
         lib.fa_forward.argtypes = ([_P] * 4 + [_I] * 8 + [_L, ctypes.c_float]
                                    + [_L] * 9 + [_I, _P])
         lib.fa_forward.restype = _I
+        lib.fa_kernel_attributes.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 5
+        lib.fa_kernel_attributes.restype = _I
         _lib = lib
     return _lib
+
+
+def kernel_attributes(dtype: torch.dtype, dh: int) -> dict[str, int]:
+    """The compiled kernel for ``dtype`` and head dim ``dh``, from
+    ``cudaFuncGetAttributes``: registers a thread, static and dynamic shared
+    memory a CTA (bytes), local memory a thread (bytes: spills) and threads a
+    CTA."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+    vals = [_I() for _ in range(5)]
+    err = _load().fa_kernel_attributes(int(dtype == torch.bfloat16), dh,
+                                       *map(ctypes.byref, vals))
+    build.raise_on(err, "fa_kernel_attributes")
+    keys = ("regs", "static_smem", "dynamic_smem", "local_bytes", "threads")
+    return dict(zip(keys, (x.value for x in vals)))
+
+
+def misaligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data pointer or one of its three outer strides is not
+    a multiple of 16 bytes (the bf16 kernel's cp.async rows need both)."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 != 0
+            or any(s * size % 16 for s in t.stride()[:3]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,6 +112,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "be contiguous")
     if scale is None:
         scale = dh ** -0.5
+    if q.dtype == torch.bfloat16:
+        if any(map(misaligned, (q, k, v))):
+            raise ValueError("flash_attention: bf16 q, k and v must be "
+                             "16-byte aligned (data pointer and the three "
+                             "outer strides)")
+        if not (scale > 0 and hq // hkv * -(-sq // 16) <= 4 * 65535):
+            raise ValueError(f"flash_attention: bf16 takes scale > 0 and "
+                             f"(Hq / Hkv) * ceil(Sq / 16) <= 4 * 65535, got "
+                             f"scale {scale}, q {tuple(q.shape)}")
     lib = _load()
     out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

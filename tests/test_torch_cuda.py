@@ -16,7 +16,13 @@ attention with the reference's bounds (rtol = atol = 2e-4 in f32, 2e-2 in
 bf16; tests/test_kernels.py) at the reference's sweep and the pretrain
 path's shape, on contiguous inputs and on the model's transposed views;
 the gradient through ``ops.flash_attention`` to the plain version's at
-2e-3.
+2e-3.  The bf16 attention kernel (tensor cores) is held at ragged q-tiles
+(Sq = 129, 17, 1 against Skv = 300), at every head dim, with windows and
+on transposed views, and must refuse views that are not 16-byte aligned;
+the f32 kernel (CUDA cores) takes such views.  ``sq_dists_to_points`` is
+held at every sketch width D in {1, 64, 255, 256, 1024, 2048}, for each
+mix of W and point dtypes, up to its N*K limit and on an unaligned base
+(the small-D kernel's element path), and must repeat itself bit for bit.
 """
 import numpy as np
 import pytest
@@ -118,7 +124,18 @@ FLASH_SHAPES = [(1, 4, 1, 128, 128, 64, True, None, "float32"),
                 (1, 4, 2, 64, 192, 64, True, None, "float32"),
                 (1, 8, 8, 70, 70, 96, True, None, "bfloat16"),
                 (10, 25, 5, 129, 129, 64, True, 1024, "bfloat16"),
-                (10, 25, 5, 129, 129, 64, True, 1024, "float32")]
+                (10, 25, 5, 129, 129, 64, True, 1024, "float32"),
+                (1, 4, 2, 129, 300, 64, True, None, "bfloat16"),
+                (1, 4, 2, 17, 300, 64, True, None, "bfloat16"),
+                (2, 4, 2, 1, 300, 64, True, None, "bfloat16"),
+                (1, 4, 4, 100, 100, 80, True, None, "bfloat16"),
+                (1, 2, 2, 64, 64, 128, False, None, "bfloat16"),
+                (2, 8, 2, 200, 200, 128, True, None, "bfloat16"),
+                (1, 4, 1, 256, 256, 64, True, 64, "bfloat16"),
+                (1, 4, 2, 300, 300, 96, True, 100, "bfloat16"),
+                (1, 2, 1, 130, 200, 64, False, 50, "bfloat16"),
+                (1, 4, 2, 300, 300, 96, True, 100, "float32"),
+                (1, 2, 1, 130, 200, 64, False, 50, "float32")]
 
 
 def _flash_inputs(shape, seed=0):
@@ -179,3 +196,134 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                             k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_rows_that_see_nothing_write_zero(dtype):
+    """Sq > Skv under the causal mask: the first Sq - Skv rows see no key
+    and write 0 (the plain version gives NaN there); the rest match."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _flash_inputs((1, 4, 2, 100, 40, 64, True, None, dtype))
+    got = tfa.flash_attention(q, k, v).float().cpu()
+    want = tref.attention(q, k, v).float().cpu()
+    assert torch.all(got[:, :, :60] == 0)
+    assert torch.isnan(want[:, :, :60]).all()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got[:, :, 60:].numpy(),
+                               want[:, :, 60:].numpy(), rtol=tol, atol=tol)
+
+
+def _offset_view(t, lead):
+    """t's values in a view whose data pointer is ``lead`` elements past a
+    16-byte boundary, last axis contiguous."""
+    flat = torch.zeros(t.numel() + lead, dtype=t.dtype, device=t.device)
+    view = flat[lead:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _padded_view(t, pad):
+    """t's values in a view whose rows are ``pad`` elements longer."""
+    big = torch.zeros((*t.shape[:-1], t.shape[-1] + pad), dtype=t.dtype,
+                      device=t.device)
+    big[..., :t.shape[-1]] = t
+    return big[..., :t.shape[-1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", ["offset", "padded"])
+def test_cuda_flash_attention_refuses_unaligned_bf16_views(make):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _flash_inputs((1, 4, 2, 33, 33, 64, True, None, "bfloat16"))
+    bad = _offset_view(q, 1) if make == "offset" else _padded_view(q, 4)
+    assert tfa.misaligned(bad) and not tfa.misaligned(q)
+    before = tfa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(bad, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(q, k, _offset_view(v, 3))
+    assert tfa.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", ["offset", "padded"])
+def test_cuda_flash_attention_f32_takes_unaligned_views(make):
+    """The f32 kernel (CUDA cores) stages K and V by plain loads: it takes
+    views that the bf16 kernel refuses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _flash_inputs((1, 4, 2, 70, 90, 64, True, None, "float32"))
+    view = (lambda t: _offset_view(t, 1)) if make == "offset" else (
+        lambda t: _padded_view(t, 2))
+    got = tfa.flash_attention(view(q), view(k), view(v))
+    want = tref.attention(q, k, v)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_kernel_attributes(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for dh in tfa.HEAD_DIMS:
+        a = tfa.kernel_attributes(getattr(torch, dtype), dh)
+        assert a["threads"] == (128 if dtype == "bfloat16" else 256)
+        assert 0 < a["regs"] <= 255
+        assert 0 < a["static_smem"] + a["dynamic_smem"] <= 232_448
+
+
+#: every W / points dtype mix of the small-D distance kernel
+MIXES = [("float32", "float32"), ("float32", "bfloat16"),
+         ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 64, 255, 256, 1024, 2048])
+@pytest.mark.parametrize("wdt,pdt", MIXES)
+def test_cuda_sq_dists_to_points_at_sketch_widths(d, wdt, pdt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(10, 3, d, wdt)
+    rng = np.random.default_rng(d + 7)
+    p = torch.from_numpy(rng.standard_normal((3, d)).astype(np.float32))
+    p = p.to(getattr(torch, pdt)).cuda()
+    before = tpd.LAUNCHES["sq_dists_to_points"]
+    got = tpd.sq_dists_to_points(w, p)
+    again = tpd.sq_dists_to_points(w, p)
+    torch.cuda.synchronize()
+    assert tpd.LAUNCHES["sq_dists_to_points"] == before + 2
+    _close(got, tref.sq_dists_to_points(w, p))
+    assert torch.equal(got, again) and torch.all(got >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(128, 16, 256), (32, 64, 2048),
+                                   (1, 1, 255), (128, 16, 1)])
+def test_cuda_sq_dists_to_points_small_d_at_the_limits(n, k, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(n, 1, d, "float32")
+    rng = np.random.default_rng(n * k + d)
+    p = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    got = tpd.sq_dists_to_points(w, p.cuda())
+    _close(got, tref.sq_dists_to_points(w, p.cuda()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sq_dists_to_points_on_unaligned_rows(dtype):
+    """A contiguous W whose base is not 16-byte aligned takes the small-D
+    kernel's element path; it agrees with the vector path's inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(10, 3, 256, dtype)
+    p = w[:3].contiguous()
+    shifted = _offset_view(w, 1)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = tpd.sq_dists_to_points(shifted, p)
+    _close(got, tref.sq_dists_to_points(w, p))
+    _close(got, tpd.sq_dists_to_points(w, p))
