@@ -10,11 +10,13 @@ In order, it
      per source, each its own library, all started together) and prints the build
      time, the ptxas report and, from ``cudaFuncGetAttributes``, each
      ``flash_attention`` kernel's registers a thread, shared memory a CTA and
-     local memory (spills) a thread;
+     local memory (spills) a thread, and each fused-round kernel's registers
+     and local memory (any spill fails);
   3. holds each kernel against its plain PyTorch version on the card: the
      fused-round kernels at the main path's shape (N = 10, K = 3,
-     D = 582,026, f32), at a ragged shape with larger N and K, and at a
-     small bf16 shape; the distance and segment-sum kernels at those shapes
+     D = 582,026, f32, and in bf16), at a ragged shape with larger N and K,
+     at a small bf16 shape and at D = 8,000,000, each with the route it
+     took; the distance and segment-sum kernels at those shapes
      and at the sketch widths D = S in {1, 64, 255, 256, 1024, 2048} (f32,
      and bf16 at 256), ``pairwise_sq_dists``
      with its diagonal exactly 0.  The max error must stay within 5e-6 of
@@ -48,11 +50,14 @@ In order, it
      last client matrix, counters set to 0 just before, held to its plain
      version;
   8. the framework-scale phase (N = 10, K = 3, D = 8,000,000 f32, three
-     clusters): the exact geometry against countsketch + ``sketch_stage`` at
-     S in {64, 256, 1024}, timed with CUDA events, with the agreement of the
+     clusters): the exact geometry, as two full-W ``sq_dists_to_points`` and
+     as the fused round's two passes (and the whole fused round), against
+     countsketch + ``sketch_stage`` at S in
+     {64, 256, 1024}, timed with CUDA events, with the agreement of the
      assignments (at least 0.95 at S = 1024) and the sketched round's W
-     passes (2); the segment sum and the sketch builds timed at this D and
-     at the main path's;
+     passes (2); both fused-round kernels timed at this D beside their
+     bounds (``torch.cdist`` as pass 1's yardstick); the segment sum and the
+     sketch builds timed at this D and at the main path's;
   9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
   10. runs the pretrain path, ``train --mode pretrain --flash --lr 1e-3
@@ -85,7 +90,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 MAIN = (10, 3, 582_026)
 #: the other shapes the kernels are held to: (N, K, D, dtype name)
 CHECKS = ((10, 3, 582_026, "float32"), (64, 8, 1_000_003, "float32"),
-          (16, 4, 70_001, "bfloat16"))
+          (16, 4, 70_001, "bfloat16"), (10, 3, 8_000_000, "float32"),
+          (10, 3, 582_026, "bfloat16"))
 #: kernel vs plain version, max abs error / max |plain|: both compute in f32
 #: from the same inputs, so bf16 W is held to the f32 bound too
 TOL = 5e-6
@@ -199,6 +205,7 @@ def check_kernels() -> dict:
     for n, k, d, dname in CHECKS:
         dtype = getattr(torch, dname)
         w, conehot, m = inputs(n, k, d, dtype)
+        route = fr.route(n, k, d, w.dtype, w.data_ptr())
         before = dict(fr.LAUNCHES)
         got = fr.center_sq_dists(w, conehot)
         b, theta, med = fr.fused_coalition_stats(w, m)
@@ -213,9 +220,9 @@ def check_kernels() -> dict:
             worst_abs = max(a for a, _ in pairs)
             worst_rel = max(r for _, r in pairs)
             moved = fr.LAUNCHES[name] - before[name]
-            print(f"check {name} N={n} K={k} D={d} {dname}: max abs err "
-                  f"{worst_abs:.3e}, / max {worst_rel:.3e} (bound "
-                  f"{TOL:.0e}), launches +{moved}")
+            print(f"check {name} N={n} K={k} D={d} {dname} (route "
+                  f"{route}): max abs err {worst_abs:.3e}, / max "
+                  f"{worst_rel:.3e} (bound {TOL:.0e}), launches +{moved}")
             if not worst_rel <= TOL:
                 fail(f"{name} disagrees with its plain version at N={n} "
                      f"K={k} D={d} {dname}")
@@ -223,7 +230,8 @@ def check_kernels() -> dict:
                 fail(f"{name}'s launch counter moved by {moved}, not 1")
             if (n, k, d) == MAIN and dname == "float32":
                 errs[name] = worst_abs
-        del w, b, theta, med, b_ref, theta_ref, med_ref
+        del w, got, want, b, theta, med, b_ref, theta_ref, med_ref
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -436,6 +444,7 @@ def time_kernels() -> dict:
         lambda: ref.sq_dists_to_points(s_w, s_p),
         lambda: torch.cdist(s_w, s_p) ** 2, 4 * (n * s + k * s + n * k),
         3 * n * k * s)
+    print_read_floor(w)
     one = torch.zeros(1, device="cuda")
     print(f"time launch floor (one-element fill): "
           f"{time_ms(lambda: one.fill_(1.0)):.4f} ms, host "
@@ -458,6 +467,25 @@ def print_flash_attributes() -> None:
                   f"memory {a['static_smem']} static + {a['dynamic_smem']} "
                   f"dynamic bytes a CTA, {a['local_bytes']} bytes of local "
                   f"memory (spills) a thread")
+
+
+def check_fused_attributes() -> None:
+    """Each fused-round kernel's registers a thread and local memory
+    (spills), as the CUDA runtime reports them; fails on any spill."""
+    import torch
+
+    from repro_torch.kernels import fused_round as fr
+
+    for name in fr.ROUTES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in (False, True):
+                a = fr.kernel_attributes(stats, dtype, name)
+                print(f"fused_round {name} {str(dtype)[6:]} pass "
+                      f"{2 if stats else 1}: {a['regs']} registers a thread, "
+                      f"{a['local_bytes']} bytes of local memory (spills)")
+                if a["local_bytes"]:
+                    fail(f"fused_round {name} {dtype} pass "
+                         f"{2 if stats else 1} spills")
 
 
 def flash_inputs(shape, dtype, seed: int = 0):
@@ -824,6 +852,7 @@ def framework_scale() -> None:
     import torch
 
     from repro_torch.core import backends, fused, instrument, sketch
+    from repro_torch.kernels import fused_round as fr
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_mean as sm
 
@@ -844,6 +873,26 @@ def framework_scale() -> None:
     ex_assign = exact()[0]
     print(f"scale N={n} K={k} D={d}: exact geometry (two full-W "
           f"sq_dists_to_points) {exact_ms:.4f} ms")
+    conehot = torch.nn.functional.one_hot(ci, n).float()
+    m = torch.nn.functional.one_hot(ex_assign, k).T.float()
+    m = (m / m.sum(1, keepdim=True)).contiguous()           # outside timing
+
+    def passes():
+        d2c = fr.center_sq_dists(w, conehot)
+        return fused.pin_assignment(d2c, ci), fr.fused_coalition_stats(w, m)
+
+    passes_ms = event_ms(passes)
+    round_ms = event_ms(lambda: fused.fused_round(w, ci, backend=be))
+    same = (torch.equal(passes()[0], ex_assign) and torch.equal(
+        fused.fused_round(w, ci, backend=be).assignment, ex_assign))
+    print(f"scale N={n} K={k} D={d}: exact geometry as the fused round's two "
+          f"passes {passes_ms:.4f} ms ({exact_ms / passes_ms:.2f}x below the "
+          f"two sq_dists_to_points); the whole fused round with its O(NK) "
+          f"glue {round_ms:.4f} ms; assignment equal: {same}")
+    if not same:
+        fail(f"the fused round's assignment at D={d} differs from the two "
+             f"sq_dists_to_points'")
+    time_fused_big(w, conehot, m)
     agreement = {}
     for s in (64, 256, 1024):
         sk = sketch.make_sketcher("countsketch", dim=s)
@@ -880,6 +929,43 @@ def framework_scale() -> None:
                   f"(first call {first:.1f} ms of host clock)")
     del w, wd, b
     torch.cuda.empty_cache()
+
+
+def time_fused_big(w, conehot, m) -> None:
+    """Phase 8: both fused-round kernels at the framework-scale D, L2
+    flushed, beside their bounds, their plain versions and (pass 1)
+    torch.cdist(w, centers); then w.sum() as the read floor."""
+    import torch
+
+    from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import ref
+
+    (n, d), k = w.shape, conehot.shape[0]
+    centers = (conehot @ w).contiguous()
+    wb = n * d * 4
+    route = fr.route(n, k, d, w.dtype, w.data_ptr())
+    timed_row(f"center_sq_dists N={n} K={k} D={d} f32 (route {route})",
+              lambda: fr.center_sq_dists(w, conehot),
+              lambda: ref.center_sq_dists(w, conehot),
+              lambda: torch.cdist(w, centers),
+              wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d)
+    timed_row(f"fused_coalition_stats N={n} K={k} D={d} f32 (route {route})",
+              lambda: fr.fused_coalition_stats(w, m),
+              lambda: ref.fused_coalition_stats(w, m), None,
+              wb + 4 * (k * n + k * d + d + n * k),
+              2 * k * n * d + k * d + d + 3 * n * k * d)
+    print_read_floor(w)
+    torch.cuda.empty_cache()
+
+
+def print_read_floor(w) -> None:
+    """The read rate one PyTorch call reaches on W under the same timing:
+    w.sum(), ATen's reduction, reads W once and writes one value."""
+    ms = time_ms(lambda: w.sum())
+    nbytes = w.numel() * w.element_size()
+    print(f"time read floor w.sum() {tuple(w.shape)} {str(w.dtype)[6:]}, L2 "
+          f"flushed: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+          f"{100 * nbytes / PEAK_BYTES * 1e3 / ms:.1f}% of the byte bound)")
 
 
 def profile_round() -> None:
@@ -952,6 +1038,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(build.ptxas_report().strip())
     print_flash_attributes()
+    check_fused_attributes()
 
     errs = check_kernels()
     dist_errs = check_dist_kernels()

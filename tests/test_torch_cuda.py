@@ -23,6 +23,11 @@ the f32 kernel (CUDA cores) takes such views.  ``sq_dists_to_points`` is
 held at every sketch width D in {1, 64, 255, 256, 1024, 2048}, for each
 mix of W and point dtypes, up to its N*K limit and on an unaligned base
 (the small-D kernel's element path), and must repeat itself bit for bit.
+The fused-round kernels are swept over D at every row alignment, N in
+{1, 2, 10, 16, 64} and K in {1, 3, N} on every route (the exact (10, 3)
+tier, the general register tier and the tile kernel), in f32 and bf16 and
+on an unaligned base; two calls must agree bit for bit, each call must move
+its launch counter by one, and no kernel may spill.
 """
 import numpy as np
 import pytest
@@ -327,3 +332,75 @@ def test_cuda_sq_dists_to_points_on_unaligned_rows(dtype):
     got = tpd.sq_dists_to_points(shifted, p)
     _close(got, tref.sq_dists_to_points(w, p))
     _close(got, tpd.sq_dists_to_points(w, p))
+
+
+#: the fused-round sweep: every D at each row alignment (f32 rows of 4, 8
+#: and 16 bytes, bf16 rows of 2, 4 and 8), and (N, K) on both register
+#: tiers (the exact (10, 3) and N <= 16, K <= 4) and above them (the tile
+#: route)
+FUSED_D = [1, 2, 3, 255, 257, 4096, 582_026, 1_000_003]
+FUSED_NK = [(1, 1), (2, 1), (2, 2), (10, 1), (10, 3), (10, 10), (16, 1),
+            (16, 3), (16, 16), (64, 8)]
+
+
+def _fused_calls(w, conehot, m):
+    """Both passes once; each must move its own launch counter by one."""
+    before = tfr.LAUNCHES["center_sq_dists"]
+    out = tfr.center_sq_dists(w, conehot)
+    assert tfr.LAUNCHES["center_sq_dists"] == before + 1
+    before = tfr.LAUNCHES["fused_coalition_stats"]
+    stats = tfr.fused_coalition_stats(w, m)
+    assert tfr.LAUNCHES["fused_coalition_stats"] == before + 1
+    return (out, *stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", FUSED_D)
+@pytest.mark.parametrize("n,k", FUSED_NK)
+def test_cuda_fused_round_sweep(n, k, d, dtype):
+    """Both passes against their plain versions on every route; two calls
+    on the same inputs are bit-identical, and the tickets are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, conehot, m = _inputs(n, k, d, dtype)
+    first = _fused_calls(w, conehot, m)
+    again = _fused_calls(w, conehot, m)
+    torch.cuda.synchronize()
+    want = (tref.center_sq_dists(w, conehot),
+            *tref.fused_coalition_stats(w, m))
+    for got, ref in zip(first, want):
+        _close(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.all(first[0] >= 0) and torch.all(first[3] >= 0)
+    assert all(int(t) == 0 for t in tfr._TICKETS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_round_on_unaligned_rows(dtype):
+    """W whose base is one element past a 16-byte boundary takes a register
+    route one column at a time, and agrees with the aligned W."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n, k, tier in ((10, 3, "exact"), (7, 2, "regs")):
+        w, conehot, m = _inputs(n, k, 4096, dtype)
+        shifted = _offset_view(w, 1)
+        assert shifted.is_contiguous()
+        assert tfr.route(n, k, 4096, w.dtype, shifted.data_ptr()) == tier + "1"
+        assert tfr.route(n, k, 4096, w.dtype, w.data_ptr()) == tier + "2"
+        for got, want in zip(_fused_calls(shifted, conehot, m),
+                             _fused_calls(w, conehot, m)):
+            _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(tfr.ROUTES))
+def test_cuda_fused_round_kernels_do_not_spill(name, dtype, stats):
+    """No fused-round kernel keeps local memory (ptxas spills)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    attrs = tfr.kernel_attributes(stats, getattr(torch, dtype), name)
+    assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
