@@ -7,18 +7,19 @@ In order, it
   1. prints the card (``nvidia-smi`` name and power limit) and the torch and
      nvcc versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, each its own library, all started together) and prints the build
-     time, the ptxas report and, from ``cudaFuncGetAttributes``, each
+     per source, each its own library, all started together) and prints the
+     build time, the ptxas report and, from ``cudaFuncGetAttributes``, each
      ``flash_attention`` kernel's registers a thread, shared memory a CTA and
-     local memory (spills) a thread, and each fused-round kernel's registers
-     and local memory (any spill fails);
+     local memory (spills) a thread, and the registers and local memory of
+     every route of the fused round, ``sq_dists_to_points`` and
+     ``segment_sum`` (any spill fails);
   3. holds each kernel against its plain PyTorch version on the card: the
      fused-round kernels at the main path's shape (N = 10, K = 3,
      D = 582,026, f32, and in bf16), at a ragged shape with larger N and K,
      at a small bf16 shape and at D = 8,000,000, each with the route it
-     took; the distance and segment-sum kernels at those shapes
-     and at the sketch widths D = S in {1, 64, 255, 256, 1024, 2048} (f32,
-     and bf16 at 256), ``pairwise_sq_dists``
+     took; the distance and segment-sum kernels at those shapes (with their
+     routes) and at the sketch widths D = S in {1, 64, 255, 256, 1024, 2048}
+     (f32, and bf16 at 256), ``pairwise_sq_dists``
      with its diagonal exactly 0.  The max error must stay within 5e-6 of
      the max for both dtypes (kernel and plain version upcast the same bf16
      values to f32), and the launch counters must move.  ``flash_attention``
@@ -28,12 +29,17 @@ In order, it
      through ``ops.flash_attention`` within 2e-3 of the plain version's;
   4. holds whole rounds on the ``cuda`` backend against the ``stream``
      backend at the main width: the fused round, the composed round and the
-     sketched round (rproj and countsketch, S = 256): equal assignments and
-     centers, θ within 5e-6 of its max;
+     sketched round (rproj and countsketch, S = 256), each with the launch
+     counters set to 0 just before: equal assignments and centers, θ within
+     5e-6 of its max, and the launches of each with their routes;
   5. times each kernel at the main path's shapes with CUDA events after a
      warm-up, with the 50 MB L2 cache flushed before every launch, beside
      its bound, its plain version and a one-call library yardstick, and the
-     host time a wrapper call takes to enqueue (``flash_attention`` in bf16
+     host time a wrapper call takes to enqueue; the five memory-bound
+     kernels and ``w.sum()`` also with a clean L2 (the flush's dirty lines
+     written back before the launch), and the fixed cost of one step of
+     the register sweep with and without its last-CTA sum
+     (``flash_attention`` in bf16
      at the pretrain path's shape, against
      ``F.scaled_dot_product_attention``, and at S = 4096 with window 1024,
      each with the wrapper's host time beside the kernel's device time);
@@ -50,14 +56,18 @@ In order, it
      last client matrix, counters set to 0 just before, held to its plain
      version;
   8. the framework-scale phase (N = 10, K = 3, D = 8,000,000 f32, three
-     clusters): the exact geometry, as two full-W ``sq_dists_to_points`` and
-     as the fused round's two passes (and the whole fused round), against
+     clusters): the exact geometry, as two full-W ``sq_dists_to_points``
+     (the gather of the centers timed apart) and as the fused round's two
+     passes (and the whole fused round), against
      countsketch + ``sketch_stage`` at S in
      {64, 256, 1024}, timed with CUDA events, with the agreement of the
      assignments (at least 0.95 at S = 1024) and the sketched round's W
-     passes (2); both fused-round kernels timed at this D beside their
-     bounds (``torch.cdist`` as pass 1's yardstick); the segment sum and the
-     sketch builds timed at this D and at the main path's;
+     passes (2); the composed round at this D, counters set to 0 just
+     before (two ``sq_dists_to_points`` and one ``segment_sum``, its
+     assignment equal to the exact geometry's); both fused-round kernels,
+     ``sq_dists_to_points`` and the segment sum timed at this D beside their
+     bounds (``torch.cdist`` as the distances' yardstick); the sketch builds
+     timed at this D and at the main path's;
   9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
   10. runs the pretrain path, ``train --mode pretrain --flash --lr 1e-3
@@ -68,8 +78,14 @@ In order, it
       peak memory.  Then one forward of the full model with the kernel and
       without (losses within 1e-2 relative), and one pretrain step traced
       with torch.profiler (busy share, top kernels);
-  11. prints the card again, one JSON line with every kernel's numbers, and
-      last ``{"ok": true, "device": {...}}``.
+  11. prints the card again, one JSON line with every kernel's numbers (a
+      line for each kernel at the shape its path gives it, and
+      ``sq_dists_to_points`` and ``segment_sum`` also at full width and at
+      D = 8M; each line's launches are those of the path that gives the
+      kernel that shape, at the line's route and D: the main path, the
+      sketch path, the composed round at the main width and at 8M, the
+      pairwise call, the pretrain path; a line with none fails), and last
+      ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 before any
 result.  It imports nothing of JAX and nothing of the ``repro`` package.
@@ -101,7 +117,8 @@ SKETCH_ROUNDS = 2
 SKETCH_ARGS = ["--mode", "fl", "--method", "coalition_topk", "--sketch",
                "rproj", "--sketch-dim", "256"]
 #: the distance and segment-sum kernels' checks: (N, K, D, dtype name)
-DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 1, "float32"),
+DIST_CHECKS = ((10, 3, 582_026, "float32"), (10, 3, 582_026, "bfloat16"),
+               (10, 3, 8_000_000, "float32"), (10, 3, 1, "float32"),
                (10, 3, 64, "float32"), (10, 3, 255, "float32"),
                (10, 3, 256, "float32"), (10, 3, 1024, "float32"),
                (10, 3, 2048, "float32"), (10, 3, 256, "bfloat16"),
@@ -193,6 +210,44 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / (float(want.abs().max()) + 1e-12)
 
 
+def path_run(fn):
+    """Run ``fn`` with every launch counter set to 0 just before.  Returns
+    its result, the counters just after, and how many of those launches of
+    ``sq_dists_to_points`` and ``segment_sum`` took each (kernel, route,
+    D): each wrapper asks its module's ``route`` once a launch, and that
+    function is wrapped for the run to record its answers."""
+    import collections
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import segment_mean as sm
+
+    routes = collections.Counter()
+    saved = {mod: mod.route for mod in (pd, sm)}
+
+    def recording(mod, name):
+        def route(n, k, d, *args):
+            got = saved[mod](n, k, d, *args)
+            routes[(name, got, d)] += 1
+            return got
+        return route
+
+    pd.route = recording(pd, "sq_dists_to_points")
+    sm.route = recording(sm, "segment_sum")
+    try:
+        ops.reset_launch_counts()
+        out = fn()
+        launches = ops.launch_counts()
+    finally:
+        pd.route, sm.route = saved[pd], saved[sm]
+    for name in ("sq_dists_to_points", "segment_sum"):
+        recorded = sum(c for (kn, _, _), c in routes.items() if kn == name)
+        if recorded != launches[name]:
+            fail(f"{name}: {launches[name]} launches, but {recorded} routes "
+                 f"asked for")
+    return out, launches, routes
+
+
 def check_kernels() -> dict:
     """Phase 3: every kernel against its plain version; returns main-shape
     max abs errors."""
@@ -250,6 +305,11 @@ def check_dist_kernels() -> dict:
         w, _, m = inputs(n, k, d, dtype, seed=2)
         g = torch.Generator(device="cuda").manual_seed(3)
         p = torch.randn((k, d), generator=g, device="cuda").to(dtype)
+        routes = {"sq_dists_to_points": pd.route(n, k, d, w.dtype,
+                                                 w.data_ptr(), p.dtype,
+                                                 p.data_ptr()),
+                  "segment_sum": sm.route(n, k, d, w.dtype, w.data_ptr()),
+                  "pairwise_sq_dists": "tile"}
         before = {**pd.LAUNCHES, **sm.LAUNCHES}
         got = {"sq_dists_to_points": pd.sq_dists_to_points(w, p),
                "segment_sum": sm.segment_sum(m, w),
@@ -262,9 +322,9 @@ def check_dist_kernels() -> dict:
         for name in got:
             err, rel = rel_err(got[name], want[name])
             moved = after[name] - before[name]
-            print(f"check {name} N={n} K={k} D={d} {dname}: max abs err "
-                  f"{err:.3e}, / max {rel:.3e} (bound {TOL:.0e}), launches "
-                  f"+{moved}")
+            print(f"check {name} N={n} K={k} D={d} {dname} (route "
+                  f"{routes[name]}): max abs err {err:.3e}, / max {rel:.3e} "
+                  f"(bound {TOL:.0e}), launches +{moved}")
             if not rel <= TOL:
                 fail(f"{name} disagrees with its plain version at N={n} "
                      f"K={k} D={d} {dname}")
@@ -282,13 +342,14 @@ def check_dist_kernels() -> dict:
     return errs
 
 
-def check_rounds() -> None:
+def check_rounds():
     """Phase 4: whole rounds on the cuda backend against the stream one at
-    the main width: fused, composed, and sketched (rproj, countsketch)."""
+    the main width: fused, composed, and sketched (rproj, countsketch), each
+    with the counters set to 0 just before.  Returns the routes of the
+    composed round's launches (see :func:`path_run`)."""
     import torch
 
     from repro_torch.core import coalitions, sketch
-    from repro_torch.kernels import ops
 
     n, k, d = MAIN
     w, _, _ = inputs(n, k, d, torch.float32, seed=1)
@@ -302,12 +363,16 @@ def check_rounds() -> None:
                   {"sketcher": sketch.make_sketcher(name, dim=SKETCH_DIM)},
                   {"sq_dists_to_points": 2, "segment_sum": 1})
                  for name in ("rproj", "countsketch")]
+    composed = None
     for label, kw, launches in variants:
-        before = ops.launch_counts()
-        rc = coalitions.run_round(w, state, backend="cuda", **kw)
-        torch.cuda.synchronize()
-        moved = {name: c - before[name]
-                 for name, c in ops.launch_counts().items() if c != before[name]}
+        def cuda_round():
+            rc = coalitions.run_round(w, state, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            return rc
+        rc, counts, routes = path_run(cuda_round)
+        moved = {name: c for name, c in counts.items() if c}
+        if label == "composed":
+            composed = routes
         rs = coalitions.run_round(w, state, backend="stream", **kw)
         same = (torch.equal(rc.assignment, rs.assignment)
                 and torch.equal(rc.new_center_idx, rs.new_center_idx))
@@ -319,21 +384,35 @@ def check_rounds() -> None:
                  f"stream backend's")
         if moved != launches:
             fail(f"the {label} round launched {moved}, expected {launches}")
+        if routes:
+            print(f"round {label}: launches by (kernel, route, D) "
+                  f"{dict(routes)}")
+    return composed
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+def time_ms(fn, reps: int = 50, warmup: int = 5,
+            clean: bool = False) -> float:
     """Median ms of ``fn`` on the card, by CUDA events around each call,
     with the 50 MB L2 cache flushed before each.  The flush writes 1 GiB
     (~0.3 ms of device time), so the card is still busy with it while the
-    host enqueues the call: the events time the device, not the host."""
+    host enqueues the call: the events time the device, not the host.  It
+    leaves ~50 MB of dirty lines in the L2, whose write-back shares device
+    memory with the timed call.  ``clean``: after the flush, read a 128 MB
+    buffer (over twice the L2) before the start event, so those lines are
+    written back outside the timed window and the call finds a clean,
+    cold L2."""
     import torch
 
     buf = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    sweep = torch.zeros(2**25, dtype=torch.float32, device="cuda") \
+        if clean else None
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(reps):
         buf.zero_()
+        if clean:
+            sweep.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -368,9 +447,11 @@ def bound(nbytes: float, ops: float,
 
 
 def timed_row(label: str, kernel, plain, library, nbytes: float,
-              ops: float, peak: float = PEAK_FP32) -> dict:
+              ops: float, peak: float = PEAK_FP32,
+              clean: bool = False) -> dict:
     """Time a kernel, its plain version and its library yardstick (None if
-    there is none) on the card; print them beside the bound."""
+    there is none) on the card; print them beside the bound.  ``clean``:
+    also the kernel with a clean L2 (``time_ms(clean=True)``)."""
     bound_ms, bound_by = bound(nbytes, ops, peak)
     row = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
            "library_ms": None if library is None else time_ms(library),
@@ -383,6 +464,11 @@ def timed_row(label: str, kernel, plain, library, nbytes: float,
           f"{'-' if lib is None else f'{lib:.4f}'} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); wrapper host time "
           f"{enqueue:.1f} us")
+    if clean:
+        ms = row["clean_ms"] = time_ms(kernel, clean=True)
+        print(f"time {label}, clean L2: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s, "
+              f"{100 * bound_ms / ms:.1f}% of the bound)")
     return row
 
 
@@ -390,9 +476,11 @@ def time_kernels() -> dict:
     """Phase 5: kernel, plain and library times with bounds at the main
     path's shapes: the main width for all five kernels (the library
     yardsticks: torch.cdist, squared where the kernel squares, and cuBLAS's
-    mix @ W), and sq_dists_to_points on the sketch path's (N, S) sketch too,
-    with a one-element fill as the launch floor.  Returns the rows of the
-    kernels line: sq_dists_to_points at the sketch path's shape."""
+    mix @ W), each also with a clean L2, and sq_dists_to_points on the
+    sketch path's (N, S) sketch too, with a one-element fill as the launch
+    floor.  Returns the rows of the kernels line by kernel name:
+    sq_dists_to_points at the sketch path's shape, and its full-width row
+    under "sq_dists_to_points full"."""
     import torch
 
     from repro_torch.kernels import fused_round as fr
@@ -414,28 +502,38 @@ def time_kernels() -> dict:
             lambda: fr.center_sq_dists(w, conehot),
             lambda: ref.center_sq_dists(w, conehot),
             lambda: torch.cdist(w, centers),
-            wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d),
+            wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d,
+            clean=True),
         "fused_coalition_stats": timed_row(
             f"fused_coalition_stats N={n} K={k} D={d} f32",
             lambda: fr.fused_coalition_stats(w, m),
             lambda: ref.fused_coalition_stats(w, m), None,
             wb + 4 * (k * n + k * d + d + n * k),
-            2 * k * n * d + k * d + d + 3 * n * k * d),
+            2 * k * n * d + k * d + d + 3 * n * k * d, clean=True),
         "segment_sum": timed_row(
-            f"segment_sum K={k} N={n} D={d} f32",
+            f"segment_sum K={k} N={n} D={d} f32 (route "
+            f"{sm.route(n, k, d, w.dtype, w.data_ptr())})",
             lambda: sm.segment_sum(m, w), lambda: ref.segment_sum(m, w),
-            lambda: m @ w, wb + 4 * (k * n + k * d), 2 * k * n * d),
+            lambda: m @ w, wb + 4 * (k * n + k * d), 2 * k * n * d,
+            clean=True),
         "pairwise_sq_dists": timed_row(
             f"pairwise_sq_dists N={n} D={d} f32",
             lambda: pd.pairwise_sq_dists(w),
             lambda: ref.pairwise_sq_dists(w),
             lambda: torch.cdist(w, w) ** 2, wb + 4 * n * n,
-            3 * pairs * d)}
-    timed_row(f"sq_dists_to_points N={n} K={k} D={d} f32 (full W)",
-              lambda: pd.sq_dists_to_points(w, centers),
-              lambda: ref.sq_dists_to_points(w, centers),
-              lambda: torch.cdist(w, centers) ** 2,
-              wb + 4 * (k * d + n * k), 3 * n * k * d)
+            3 * pairs * d, clean=True)}
+    out["segment_sum"]["kernel_route"] = sm.route(n, k, d, w.dtype,
+                                                  w.data_ptr())
+    full_route = pd.route(n, k, d, w.dtype, w.data_ptr(), centers.dtype,
+                          centers.data_ptr())
+    out["sq_dists_to_points full"] = timed_row(
+        f"sq_dists_to_points N={n} K={k} D={d} f32 (full W, route "
+        f"{full_route})",
+        lambda: pd.sq_dists_to_points(w, centers),
+        lambda: ref.sq_dists_to_points(w, centers),
+        lambda: torch.cdist(w, centers) ** 2,
+        wb + 4 * (k * d + n * k), 3 * n * k * d, clean=True)
+    out["sq_dists_to_points full"]["kernel_route"] = full_route
     print(f"time pairwise Gram yardstick w @ w.T N={n} D={d}: "
           f"{time_ms(lambda: w @ w.T):.4f} ms")
     out["sq_dists_to_points"] = timed_row(
@@ -444,12 +542,41 @@ def time_kernels() -> dict:
         lambda: ref.sq_dists_to_points(s_w, s_p),
         lambda: torch.cdist(s_w, s_p) ** 2, 4 * (n * s + k * s + n * k),
         3 * n * k * s)
+    out["sq_dists_to_points"]["kernel_route"] = pd.route(
+        n, k, s, s_w.dtype, s_w.data_ptr(), s_p.dtype, s_p.data_ptr())
     print_read_floor(w)
+    print_sweep_floor(n, k)
     one = torch.zeros(1, device="cuda")
     print(f"time launch floor (one-element fill): "
           f"{time_ms(lambda: one.fill_(1.0)):.4f} ms, host "
           f"{host_us(lambda: one.fill_(1.0)):.1f} us")
     return out
+
+
+def print_sweep_floor(n: int, k: int) -> None:
+    """The fixed cost of a register sweep on the main path's grid: both
+    full-width kernels at one step of the grid (D = 1024 columns a SM less
+    2, so that both load 2 columns at a time with one CTA a SM), clean L2.
+    The distances' launch ends in the last CTA's sum of every CTA's row;
+    the segment sum's has no tail."""
+    import torch
+
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import segment_mean as sm
+
+    d = 1024 * torch.cuda.get_device_properties(0).multi_processor_count - 2
+    w = torch.randn((n, d), device="cuda")
+    p = w[:k].contiguous()
+    mix = torch.ones((k, n), device="cuda") / n
+    dist_route = pd.route(n, k, d, w.dtype, w.data_ptr(), p.dtype,
+                          p.data_ptr())
+    sum_route = sm.route(n, k, d, w.dtype, w.data_ptr())
+    dist_us = time_ms(lambda: pd.sq_dists_to_points(w, p), clean=True) * 1e3
+    sum_us = time_ms(lambda: sm.segment_sum(mix, w), clean=True) * 1e3
+    print(f"time one step of the sweep N={n} K={k} D={d} f32, clean L2: "
+          f"sq_dists_to_points (route {dist_route}, with the last CTA's sum) "
+          f"{dist_us:.3f} us, segment_sum (route {sum_route}, no tail) "
+          f"{sum_us:.3f} us")
 
 
 def print_flash_attributes() -> None:
@@ -469,23 +596,34 @@ def print_flash_attributes() -> None:
                   f"memory (spills) a thread")
 
 
-def check_fused_attributes() -> None:
-    """Each fused-round kernel's registers a thread and local memory
-    (spills), as the CUDA runtime reports them; fails on any spill."""
+def check_sweep_attributes() -> None:
+    """The registers a thread and local memory (spills) of every route of
+    the fused round's two passes, sq_dists_to_points (each W / points dtype
+    mix) and segment_sum, as the CUDA runtime reports them; fails on any
+    spill."""
     import torch
 
     from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import segment_mean as sm
 
-    for name in fr.ROUTES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for stats in (False, True):
-                a = fr.kernel_attributes(stats, dtype, name)
-                print(f"fused_round {name} {str(dtype)[6:]} pass "
-                      f"{2 if stats else 1}: {a['regs']} registers a thread, "
-                      f"{a['local_bytes']} bytes of local memory (spills)")
-                if a["local_bytes"]:
-                    fail(f"fused_round {name} {dtype} pass "
-                         f"{2 if stats else 1} spills")
+    dtypes = (torch.float32, torch.bfloat16)
+    kernels = [(f"fused_round {name} {str(dt)[6:]} pass {2 if stats else 1}",
+                lambda n=name, d=dt, st=stats: fr.kernel_attributes(st, d, n))
+               for name in fr.ROUTES for dt in dtypes
+               for stats in (False, True)]
+    kernels += [(f"sq_dists_to_points {name} W {str(wd)[6:]} P {str(pt)[6:]}",
+                 lambda n=name, a=wd, b=pt: pd.kernel_attributes(a, b, n))
+                for name in pd.ROUTES for wd in dtypes for pt in dtypes]
+    kernels += [(f"segment_sum {name} {str(dt)[6:]}",
+                 lambda n=name, d=dt: sm.kernel_attributes(d, n))
+                for name in sm.ROUTES for dt in dtypes]
+    for label, attributes in kernels:
+        a = attributes()
+        print(f"{label}: {a['regs']} registers a thread, {a['local_bytes']} "
+              f"bytes of local memory (spills)")
+        if a["local_bytes"]:
+            fail(f"{label} spills")
 
 
 def flash_inputs(shape, dtype, seed: int = 0):
@@ -648,10 +786,10 @@ def run_main_path() -> dict:
 def run_sketch_path():
     """Phase 7: the sketch path through the training entry point, counters
     reset just before: sq_dists_to_points twice and segment_sum once per
-    server step.  Returns the launches and the run's last client matrix
-    (recorded by wrapping ``pytree.client_matrix`` for the run)."""
+    server step.  Returns the routes of its launches (see
+    :func:`path_run`) and the run's last client matrix (recorded by
+    wrapping ``pytree.client_matrix`` for the run)."""
     from repro_torch.core import pytree
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     made = []
@@ -663,22 +801,22 @@ def run_sketch_path():
 
     pytree.client_matrix = recording
     try:
-        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        out = train.main([*SKETCH_ARGS, "--rounds", str(SKETCH_ROUNDS)])
+        out, launches, routes = path_run(lambda: train.main(
+            [*SKETCH_ARGS, "--rounds", str(SKETCH_ROUNDS)]))
         wall = time.perf_counter() - t0
-        launches = ops.launch_counts()
     finally:
         pytree.client_matrix = client_matrix
     label = f"train {' '.join(SKETCH_ARGS)} --rounds {SKETCH_ROUNDS}"
     report_rounds(out, label, wall, launches, SKETCH_ROUNDS)
+    print(f"{label}: launches by (kernel, route, D) {dict(routes)}")
     expect_launches(label, launches,
                     {"sq_dists_to_points": 2 * SKETCH_ROUNDS,
                      "segment_sum": SKETCH_ROUNDS})
     if out["sketch"] != "rproj" or out["method"] != "coalition_topk":
         fail(f"{label}: the summary reports sketch {out['sketch']!r}, "
              f"method {out['method']!r}")
-    return launches, made[0]
+    return routes, made[0]
 
 
 def run_pairwise(w) -> tuple[dict, float]:
@@ -845,14 +983,21 @@ def event_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def framework_scale() -> None:
+def framework_scale() -> dict:
     """Phase 8: sketched against exact geometry at D = 8M (as the reference's
-    benchmarks/run.py bench_federation_sketch), the segment sum at that D,
-    and the sketch builds at the main path's D and at 8M."""
+    benchmarks/run.py bench_federation_sketch), sq_dists_to_points and the
+    segment sum at that D, and the sketch builds at the main path's D and
+    at 8M; the composed round at 8M, counters set to 0 just before, whose
+    launches the two 8M rows of the kernels line count.  Returns those rows
+    by kernel name, each with its max abs error against the plain version,
+    its route, and the routes of the composed round's launches (see
+    :func:`path_run`) under "routes"."""
     import torch
 
-    from repro_torch.core import backends, fused, instrument, sketch
+    from repro_torch.core import backends, coalitions, fused, instrument
+    from repro_torch.core import sketch
     from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_mean as sm
 
@@ -864,15 +1009,17 @@ def framework_scale() -> None:
     ci = torch.tensor([0, 1, 2], device="cuda")
     be = backends.get_backend("cuda")
     b = fused.fused_round(w, ci, backend=be).barycenters   # outside timing
+    centers = w[ci]                                        # outside timing
 
     def exact():
-        d2c = be.sq_dists_to_points(w, w[ci])
+        d2c = be.sq_dists_to_points(w, centers)
         return fused.pin_assignment(d2c, ci), be.sq_dists_to_points(w, b)
 
     exact_ms = event_ms(exact)
     ex_assign = exact()[0]
     print(f"scale N={n} K={k} D={d}: exact geometry (two full-W "
-          f"sq_dists_to_points) {exact_ms:.4f} ms")
+          f"sq_dists_to_points) {exact_ms:.4f} ms; the gather of the centers "
+          f"w[ci] apart {event_ms(lambda: w[ci]):.4f} ms")
     conehot = torch.nn.functional.one_hot(ci, n).float()
     m = torch.nn.functional.one_hot(ex_assign, k).T.float()
     m = (m / m.sum(1, keepdim=True)).contiguous()           # outside timing
@@ -892,7 +1039,38 @@ def framework_scale() -> None:
     if not same:
         fail(f"the fused round's assignment at D={d} differs from the two "
              f"sq_dists_to_points'")
+    state = coalitions.CoalitionState(center_idx=ci, round=0)
+
+    def composed_round():
+        rc = coalitions.run_round(w, state, backend="cuda", fused=False)
+        torch.cuda.synchronize()
+        return rc
+    rc, launches, routes = path_run(composed_round)
+    label = f"composed round N={n} K={k} D={d}"
+    print(f"{label}: launches by (kernel, route, D) {dict(routes)}, "
+          f"assignment equal to the exact geometry's: "
+          f"{torch.equal(rc.assignment, ex_assign)}")
+    expect_launches(label, launches, {"sq_dists_to_points": 2,
+                                      "segment_sum": 1})
+    if not torch.equal(rc.assignment, ex_assign):
+        fail(f"the {label}'s assignment differs from the exact geometry's")
+    del rc
     time_fused_big(w, conehot, m)
+    rows = {"routes": routes}
+    err, rel = rel_err(pd.sq_dists_to_points(w, centers),
+                       ref.sq_dists_to_points(w, centers))
+    if not rel <= TOL:
+        fail(f"sq_dists_to_points at D={d} disagrees with its plain version")
+    route = pd.route(n, k, d, w.dtype, w.data_ptr(), centers.dtype,
+                     centers.data_ptr())
+    rows["sq_dists_to_points"] = timed_row(
+        f"sq_dists_to_points N={n} K={k} D={d} f32 (route {route}, max abs "
+        f"err {err:.3e})",
+        lambda: pd.sq_dists_to_points(w, centers),
+        lambda: ref.sq_dists_to_points(w, centers),
+        lambda: torch.cdist(w, centers) ** 2,
+        4 * (n * d + k * d + n * k), 3 * n * k * d, clean=True)
+    rows["sq_dists_to_points"].update(err=err, kernel_route=route)
     agreement = {}
     for s in (64, 256, 1024):
         sk = sketch.make_sketcher("countsketch", dim=s)
@@ -913,9 +1091,14 @@ def framework_scale() -> None:
     err, rel = rel_err(sm.segment_sum(mix, w), ref.segment_sum(mix, w))
     if not rel <= TOL:
         fail(f"segment_sum at D={d} disagrees with its plain version")
-    timed_row(f"segment_sum K={k} N={n} D={d} f32 (max abs err {err:.3e})",
-              lambda: sm.segment_sum(mix, w), lambda: ref.segment_sum(mix, w),
-              lambda: mix @ w, 4 * (n * d + k * n + k * d), 2 * k * n * d)
+    route = sm.route(n, k, d, w.dtype, w.data_ptr())
+    rows["segment_sum"] = timed_row(
+        f"segment_sum K={k} N={n} D={d} f32 (route {route}, max abs err "
+        f"{err:.3e})",
+        lambda: sm.segment_sum(mix, w), lambda: ref.segment_sum(mix, w),
+        lambda: mix @ w, 4 * (n * d + k * n + k * d), 2 * k * n * d,
+        clean=True)
+    rows["segment_sum"].update(err=err, kernel_route=route)
     for dd in (MAIN[2], d):
         wd = w[:, :dd].contiguous()
         for name in ("rproj", "countsketch"):
@@ -927,8 +1110,9 @@ def framework_scale() -> None:
             print(f"sketch build {name} S={SKETCH_DIM} D={dd}: "
                   f"{event_ms(lambda: sketch.sketch_matrix(sk, wd)):.4f} ms "
                   f"(first call {first:.1f} ms of host clock)")
-    del w, wd, b
+    del w, wd, b, centers
     torch.cuda.empty_cache()
+    return rows
 
 
 def time_fused_big(w, conehot, m) -> None:
@@ -948,12 +1132,13 @@ def time_fused_big(w, conehot, m) -> None:
               lambda: fr.center_sq_dists(w, conehot),
               lambda: ref.center_sq_dists(w, conehot),
               lambda: torch.cdist(w, centers),
-              wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d)
+              wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d,
+              clean=True)
     timed_row(f"fused_coalition_stats N={n} K={k} D={d} f32 (route {route})",
               lambda: fr.fused_coalition_stats(w, m),
               lambda: ref.fused_coalition_stats(w, m), None,
               wb + 4 * (k * n + k * d + d + n * k),
-              2 * k * n * d + k * d + d + 3 * n * k * d)
+              2 * k * n * d + k * d + d + 3 * n * k * d, clean=True)
     print_read_floor(w)
     torch.cuda.empty_cache()
 
@@ -961,11 +1146,14 @@ def time_fused_big(w, conehot, m) -> None:
 def print_read_floor(w) -> None:
     """The read rate one PyTorch call reaches on W under the same timing:
     w.sum(), ATen's reduction, reads W once and writes one value."""
-    ms = time_ms(lambda: w.sum())
     nbytes = w.numel() * w.element_size()
-    print(f"time read floor w.sum() {tuple(w.shape)} {str(w.dtype)[6:]}, L2 "
-          f"flushed: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
-          f"{100 * nbytes / PEAK_BYTES * 1e3 / ms:.1f}% of the byte bound)")
+    for clean in (False, True):
+        ms = time_ms(lambda: w.sum(), clean=clean)
+        print(f"time read floor w.sum() {tuple(w.shape)} {str(w.dtype)[6:]}, "
+              f"{'clean L2' if clean else 'L2 flushed'}: {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s, "
+              f"{100 * nbytes / PEAK_BYTES * 1e3 / ms:.1f}% of the byte "
+              f"bound)")
 
 
 def profile_round() -> None:
@@ -1038,19 +1226,19 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(build.ptxas_report().strip())
     print_flash_attributes()
-    check_fused_attributes()
+    check_sweep_attributes()
 
     errs = check_kernels()
     dist_errs = check_dist_kernels()
     flash_err = check_flash()
-    check_rounds()
+    composed_routes = check_rounds()
     times = time_kernels()
     times["flash_attention"] = time_flash()
     launches = run_main_path()
-    sketch_launches, w = run_sketch_path()
+    sketch_routes, w = run_sketch_path()
     pair_launches, pair_err = run_pairwise(w)
     del w
-    framework_scale()
+    big = framework_scale()
     profile_round()
     pretrain_launches = run_pretrain_path()
     model, batch = full_model()
@@ -1059,27 +1247,66 @@ def main() -> int:
     del model, batch
 
     n, k, d = MAIN
-    # each kernel's launches from the path it serves, its error at the
-    # shape that path gives it
-    launches.update({name: sketch_launches[name]
-                     for name in ("sq_dists_to_points", "segment_sum")})
-    launches["pairwise_sq_dists"] = pair_launches["pairwise_sq_dists"]
-    launches["flash_attention"] = pretrain_launches["flash_attention"]
     errs["flash_attention"] = flash_err
     errs.update({
         "sq_dists_to_points": dist_errs[("sq_dists_to_points", n, k,
                                          SKETCH_DIM)],
         "segment_sum": dist_errs[("segment_sum", n, k, d)],
         "pairwise_sq_dists": pair_err})
-    kernels = []
+    main_shape = f"N={n} K={k} D={d} f32"
+    shapes = {name: main_shape for name in REPLACES}
+    shapes["pairwise_sq_dists"] = f"N={n} D={d} f32"
+    shapes["sq_dists_to_points"] = f"N={n} K={k} D=S={SKETCH_DIM} f32"
+    shapes["flash_attention"] = f"{FLASH_PATH[:6]} bf16"
+    # each line's launches: the path that gives the kernel that shape, run
+    # with the counters at 0 just before, and of the distance and
+    # segment-sum kernels only the launches at the row's route and D
+    paths = {"center_sq_dists": ("main path", launches),
+             "fused_coalition_stats": ("main path", launches),
+             "pairwise_sq_dists": ("pairwise on the sketch run's W",
+                                   pair_launches),
+             "flash_attention": ("pretrain path", pretrain_launches)}
+    widths = {"sq_dists_to_points": SKETCH_DIM, "segment_sum": d}
+    sketch_label = f"sketch path ({' '.join(SKETCH_ARGS)})"
+
+    def on_path(name, row, width, label, routes):
+        return label, routes[(name, row["kernel_route"], width)]
+
+    # (name, shape, timed row, max abs error, (path, launches)) of each
+    # line; the distance and segment-sum kernels also at full width and at
+    # D = 8M
+    lines = []
     for name in REPLACES:
         row = times[name]
+        path = paths.get(name) or on_path(name, row, widths[name],
+                                          sketch_label, sketch_routes)
+        lines.append((name, shapes[name], row, errs[name], path))
+    full = times["sq_dists_to_points full"]
+    lines.insert(4, ("sq_dists_to_points", f"{main_shape} (full W)", full,
+                     dist_errs[("sq_dists_to_points", n, k, d)],
+                     on_path("sq_dists_to_points", full, d,
+                             f"composed round N={n} K={k} D={d}",
+                             composed_routes)))
+    lines += [(name, f"N={n} K={k} D={BIG_D} f32", big[name],
+               big[name]["err"],
+               on_path(name, big[name], BIG_D,
+                       f"composed round N={n} K={k} D={BIG_D}",
+                       big["routes"]))
+              for name in ("sq_dists_to_points", "segment_sum")]
+    kernels = []
+    for name, shape, row, err, (path, count) in lines:
+        if isinstance(count, dict):
+            count = count[name]
+        if count < 1:
+            fail(f"{name} at {shape} launched no time on the {path}")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "name": name, "shape": shape, "route": "cuda",
+            "kernel_route": row.get("kernel_route"),
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": count, "launches_on": path, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

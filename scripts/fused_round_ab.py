@@ -1,20 +1,29 @@
 #!/usr/bin/env python
-"""Time the fused round's two CUDA kernels of one source tree on the card.
+"""Time the register-sweep CUDA kernels of one source tree on the card.
 
     python3 scripts/fused_round_ab.py [SRC]
 
 SRC is the ``src`` directory of a checkout (default: this checkout's), so
 two commits compare in one call on one card: unpack the other commit with
 ``git archive`` into a directory that ``.gitignore`` lists and run them in
-turns (parent, change, change, parent).  Each line gives one kernel's time
-at the main path's shape (N = 10, K = 3, D = 582,026, f32 and bf16) and at
-the framework-scale D = 8,000,000 (f32, N = 10, K = 3 and N = 16, K = 4),
-timed as ``chip_smoke.py`` times it (CUDA events, L2 flushed before each
-launch, median of 50), beside its byte bound and the card.  Exits 1
-without a CUDA device.
+turns (parent, change, change, parent).  It prints, each line beside the
+card:
+  - the fused round's two kernels at the main path's shape (N = 10, K = 3,
+    D = 582,026, f32 and bf16) and at the framework-scale D = 8,000,000
+    (f32, N = 10, K = 3 and N = 16, K = 4), with a hash of their outputs
+    (two trees whose kernels sum alike print the same hashes) and the
+    registers and spills of every fused-round route;
+  - ``sq_dists_to_points`` at full width (W f32 or bf16, P f32) and
+    ``segment_sum`` (W f32 or bf16) at the main path's shape and at
+    D = 8M, ``segment_sum`` also on a base two elements off a 16-byte
+    boundary (two columns a load where four would be taken);
+each timed as ``chip_smoke.py`` times it (CUDA events, L2 flushed before
+each launch, median of 50), and also with a clean L2, beside its byte
+bound.  Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 
@@ -27,6 +36,37 @@ import chip_smoke  # noqa: E402  (its helpers; it imports no kernel here)
 SHAPES = ((10, 3, 582_026, "float32"), (10, 3, 582_026, "bfloat16"),
           (10, 3, chip_smoke.BIG_D, "float32"),
           (16, 4, chip_smoke.BIG_D, "float32"))
+#: (N, K, D, W dtype, elements W's base lies past a 16-byte boundary) of
+#: the distance and segment-sum kernels; P is f32, as the composed round
+#: gives it
+DIST_SHAPES = ((10, 3, 582_026, "float32", 0),
+               (10, 3, 582_026, "bfloat16", 0),
+               (10, 3, chip_smoke.BIG_D, "float32", 0),
+               (10, 3, chip_smoke.BIG_D, "float32", 2))
+
+
+def digest(*ts) -> str:
+    """A hash of the tensors' bytes: equal for bit-identical outputs."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def report(label: str, name: str, shape: str, fn, nbytes: int) -> None:
+    ms = chip_smoke.time_ms(fn)
+    clean = chip_smoke.time_ms(fn, clean=True)
+    bound = nbytes / chip_smoke.PEAK_BYTES * 1e3
+    print(f"ab {label} {name} {shape}: {ms * 1e3:.3f} us, clean L2 "
+          f"{clean * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
+          f"({100 * bound / ms:.1f}%, clean {100 * bound / clean:.1f}%)")
+
+
+def route_of(mod, *args) -> str:
+    return mod.route(*args) if hasattr(mod, "route") else "-"
 
 
 def main(argv: list[str]) -> int:
@@ -38,26 +78,60 @@ def main(argv: list[str]) -> int:
         print("fused_round_ab: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import segment_mean as sm
 
     if not fr.__file__.startswith(src):
         raise SystemExit(f"fused_round_ab: imported {fr.__file__}, not {src}")
     label = os.path.relpath(src, ROOT)
     print(chip_smoke.card_line())
+    for name in fr.ROUTES:
+        for dt in (torch.float32, torch.bfloat16):
+            for stats in (False, True):
+                a = fr.kernel_attributes(stats, dt, name)
+                print(f"ab {label} fused_round {name} {str(dt)[6:]} pass "
+                      f"{2 if stats else 1}: {a['regs']} registers, "
+                      f"{a['local_bytes']} bytes of local memory")
     for n, k, d, dname in SHAPES:
         w, conehot, m = chip_smoke.inputs(n, k, d, getattr(torch, dname))
         wb = w.numel() * w.element_size()
-        runs = (("center_sq_dists", lambda: fr.center_sq_dists(w, conehot),
-                 wb + 4 * (k * n + n * k)),
-                ("fused_coalition_stats",
-                 lambda: fr.fused_coalition_stats(w, m),
-                 wb + 4 * (k * n + k * d + d + n * k)))
-        for name, fn, nbytes in runs:
-            ms = chip_smoke.time_ms(fn)
-            bound = nbytes / chip_smoke.PEAK_BYTES * 1e3
-            print(f"ab {label} {name} N={n} K={k} D={d} {dname}: "
-                  f"{ms * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
-                  f"({100 * bound / ms:.1f}%)")
+        shape = f"N={n} K={k} D={d} {dname}"
+        outs = (fr.center_sq_dists(w, conehot),
+                *fr.fused_coalition_stats(w, m))
+        print(f"ab {label} fused_round {shape} outputs {digest(*outs)}")
+        del outs
+        report(label, "center_sq_dists", shape,
+               lambda: fr.center_sq_dists(w, conehot),
+               wb + 4 * (k * n + n * k))
+        report(label, "fused_coalition_stats", shape,
+               lambda: fr.fused_coalition_stats(w, m),
+               wb + 4 * (k * n + k * d + d + n * k))
         del w, conehot, m
+        torch.cuda.empty_cache()
+    for n, k, d, dname, lead in DIST_SHAPES:
+        dtype = getattr(torch, dname)
+        w0, conehot, m = chip_smoke.inputs(n, k, d, dtype)
+        p = (conehot @ w0.float()).contiguous()
+        w = torch.empty(n * d + lead, dtype=dtype, device="cuda")
+        w = w[lead:].view(n, d)
+        w.copy_(w0)
+        del w0
+        wb = w.numel() * w.element_size()
+        shape = f"N={n} K={k} D={d} W {dname} (base +{lead})"
+        if lead == 0:
+            r = route_of(pd, n, k, d, w.dtype, w.data_ptr(), p.dtype,
+                         p.data_ptr())
+            print(f"ab {label} sq_dists_to_points {shape} route {r} outputs "
+                  f"{digest(pd.sq_dists_to_points(w, p))}")
+            report(label, "sq_dists_to_points", shape,
+                   lambda: pd.sq_dists_to_points(w, p),
+                   wb + 4 * (k * d + n * k))
+        r = route_of(sm, n, k, d, w.dtype, w.data_ptr())
+        print(f"ab {label} segment_sum {shape} route {r} outputs "
+              f"{digest(sm.segment_sum(m, w))}")
+        report(label, "segment_sum", shape, lambda: sm.segment_sum(m, w),
+               wb + 4 * (k * n + k * d))
+        del w, p, conehot, m
         torch.cuda.empty_cache()
     return 0
 

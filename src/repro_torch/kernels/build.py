@@ -4,7 +4,7 @@ Every source in ``csrc/`` has a plain C interface and becomes a shared
 library of its own, loaded with :mod:`ctypes` by its wrapper module.  The
 first :func:`load` builds every library that is missing, one ``nvcc`` per
 library, all started together.  A library is named by a hash of its source,
-the shared header and the flags, so an edited source is rebuilt and a stale
+the shared headers and the flags, so an edited source is rebuilt and a stale
 library is never loaded.  Libraries go into ``_build/`` beside this file,
 which ``.gitignore`` lists; ``nvcc`` writes to a temporary name that is
 renamed into place, so concurrent processes never load a partial file.
@@ -24,10 +24,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE / "_build"
 
-#: the CUDA sources, relative to this directory, and the header they share
+#: the CUDA sources, relative to this directory, and the headers they share
 SOURCES = ("csrc/fused_round.cu", "csrc/pairwise_dist.cu",
            "csrc/segment_mean.cu", "csrc/flash_attention.cu")
-HEADERS = ("csrc/common.cuh",)
+HEADERS = ("csrc/common.cuh", "csrc/reg_sweep.cuh")
 
 FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,7 +49,7 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source``'s library lives: named by source, header and flags."""
+    """Where ``source``'s library lives: named by source, headers and flags."""
     h = hashlib.sha256()
     for name in (source,) + HEADERS:
         h.update(name.encode())

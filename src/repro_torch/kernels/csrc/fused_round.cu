@@ -30,7 +30,9 @@
 //   - a second launch (reduce_partials) to sum the per-CTA partials.
 //
 // Design (reg_sq_dists): W goes from device memory straight into registers,
-// each element once.
+// each element once.  The sweep's parts (tiers, loads, the grid-wide sweep,
+// the CTA sums and the last CTA's tail) are in reg_sweep.cuh, shared with
+// the full-width distance kernel and the segment sum.
 //   - One CTA a SM, of 512 threads (at most 128 registers a thread) or 384
 //     (168).  All CTAs sweep D together, a step of the grid over adjacent
 //     columns, so the DRAM pages of a row are read in order; each thread takes
@@ -82,9 +84,7 @@
 // Limits (the entry points return cudaErrorInvalidValue beyond them):
 //   1 <= N <= kMaxN, 1 <= K <= N, N*K <= kMaxPairs, D >= 1.
 
-#include <cstdint>
-
-#include "common.cuh"
+#include "reg_sweep.cuh"
 
 namespace {
 
@@ -108,134 +108,14 @@ constexpr int kRouteRegs2 = 2;
 constexpr int kRouteExact1 = 3;
 constexpr int kRouteExact2 = 4;
 
-// A register tier: N and K caps; whether N and K equal the caps (no row or
-// pair is padding); the columns a thread takes a step (at least one vector
-// of V); whether the next step's loads are issued before this step's
-// arithmetic (two steps of W in registers); and the threads of a CTA, one
-// CTA a SM, which set the registers a thread may take (65,536 / threads:
-// 128 at 512, 168 at 384) without spilling.
-template <int N_, int K_, bool EXACT_, int COLS_, bool PIPE_, int THREADS_>
-struct Tier {
-  static constexpr int n = N_;
-  static constexpr int k = K_;
-  static constexpr bool exact = EXACT_;
-  static constexpr bool pipe = PIPE_;
-  static constexpr int threads = THREADS_;
-  static constexpr int warps = THREADS_ / 32;
-  // column groups of v columns a thread takes a step
-  __host__ __device__ static constexpr int groups(int v) {
-    return COLS_ > v ? COLS_ / v : 1;
-  }
-};
 using RegsTier = Tier<kRegN, kRegK, false, 1, false, 384>;
 using ExactTier = Tier<kExactN, kExactK, true, 2, true, 512>;
 
 // ------------------------------------------------------------ register route
 
-// V adjacent columns of one row of W at p, as f32.  Streaming loads: W is
-// read once.  bf16 -> f32 is exact: a bf16 value is the top half of an f32.
-__device__ __forceinline__ void load_cols(const float* p, float (&x)[1]) {
-  x[0] = __ldcs(p);
-}
-__device__ __forceinline__ void load_cols(const float* p, float (&x)[2]) {
-  const float2 v = __ldcs(reinterpret_cast<const float2*>(p));
-  x[0] = v.x;
-  x[1] = v.y;
-}
-__device__ __forceinline__ float bf16_lo(unsigned u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&x)[1]) {
-  x[0] = bf16_lo(__ldcs(reinterpret_cast<const unsigned short*>(p)));
-}
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&x)[2]) {
-  const unsigned u = __ldcs(reinterpret_cast<const unsigned*>(p));
-  x[0] = bf16_lo(u);
-  x[1] = bf16_hi(u);
-}
-
-__device__ __forceinline__ void store_cols(float* p, const float (&x)[1]) {
-  p[0] = x[0];
-}
-__device__ __forceinline__ void store_cols(float* p, const float (&x)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-}
-
-// Sums acc over the CTA's threads in a fixed order (a __shfl_xor tree in each
-// warp, then the warps in index order).  FINAL: writes the sum of pair (i, j),
-// clamped at 0, to dst[i * k + j] for i < n, j < k.  Else writes every pair
-// below the caps to dst[i * KC + j] (a row of partials: compile-time offsets,
-// so the last CTA reads a row from one pointer).  red holds THREADS / 32 * NC
-// * KC floats.  No branch stands between acc and a register.  Ends with
-// every thread at a barrier.
-template <bool FINAL, int THREADS, int NC, int KC>
-__device__ __forceinline__ void cta_sum(const float (&acc)[NC][KC],
-                                        float* red, float* dst, int n, int k) {
-  constexpr int kPairs = NC * KC;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-#pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      float v = acc[i][j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0) red[warp * kPairs + i * KC + j] = v;
-    }
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < kPairs; q += THREADS) {
-    const int i = q / KC;
-    const int j = q % KC;
-    float s = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < THREADS / 32; ++wp) s += red[wp * kPairs + q];
-    if (!FINAL) {
-      dst[q] = s;
-    } else if (i < n && j < k) {
-      dst[i * k + j] = fmaxf(s, 0.f);
-    }
-  }
-  __syncthreads();
-}
-
-// One step of a thread: U groups of V columns, THREADS groups apart from
-// group g0, of all NC rows, as f32.  In a tier that is not exact, rows past n
-// read row n - 1 again (the mix is zero there, so they add nothing to any row
-// r, and their sums are dropped at the end).  Groups past the end are zeros.
-template <int THREADS, typename T, int NC, int U, int V>
-__device__ __forceinline__ void load_step(float (&x)[U][NC][V],
-                                          const T* __restrict__ w,
-                                          long long g0, long long groups,
-                                          int n, long long d) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const long long g = g0 + u * THREADS;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const long long row = i < n ? i : n - 1;
-      if (g < groups) {
-        load_cols(w + row * d + g * V, x[u][i]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v) x[u][i][v] = 0.f;
-      }
-    }
-  }
-}
-
 // The arithmetic of one step: each of the KC rows r = sum_i mix[j, i] w[i]
-// in registers (mix from shared memory, 4 values a broadcast), then
-// (w[i] - r)^2 into acc[i][j].  Pass 2 (STATS) writes r to b[j] for j < k and
-// the mean of the k rows to theta.
+// in registers (mix_row), then (w[i] - r)^2 into acc[i][j].  Pass 2 (STATS)
+// writes r to b[j] for j < k and the mean of the k rows to theta.
 template <bool STATS, int THREADS, int NC, int KC, int U, int V>
 __device__ __forceinline__ void step_sums(const float (&x)[U][NC][V],
                                           const float* ms,
@@ -255,18 +135,7 @@ __device__ __forceinline__ void step_sums(const float (&x)[U][NC][V],
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       float r[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) r[v] = 0.f;
-#pragma unroll
-      for (int i = 0; i < NC4; i += 4) {
-        const float4 m4 = *reinterpret_cast<const float4*>(&ms[j * NC4 + i]);
-        const float m[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-        for (int t = 0; t < 4 && i + t < NC; ++t) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) r[v] = fmaf(m[t], x[u][i + t][v], r[v]);
-        }
-      }
+      mix_row(x[u], ms + j * NC4, r);
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
 #pragma unroll
@@ -308,15 +177,7 @@ __global__ void __launch_bounds__(TIER::threads, 1)
   const int k = TIER::exact ? KC : k_in;
   __shared__ __align__(16) float ms[KC * NC4];   // mix, zero-padded
   __shared__ float red[TIER::warps * NC * KC];
-  __shared__ bool last;
-
-  const int tid = threadIdx.x;
-  for (int q = tid; q < KC * NC4; q += kT) {
-    const int j = q / NC4;
-    const int i = q % NC4;
-    ms[q] = j < k && i < n ? mix[j * n + i] : 0.f;
-  }
-  __syncthreads();
+  stage_mix<kT, NC, KC>(ms, mix, n, k);
 
   float acc[NC][KC];
 #pragma unroll
@@ -324,63 +185,19 @@ __global__ void __launch_bounds__(TIER::threads, 1)
 #pragma unroll
     for (int j = 0; j < KC; ++j) acc[i][j] = 0.f;
   }
-
-  // every CTA sweeps D together: a step of the grid covers gridDim.x * U * kT
-  // adjacent groups of V columns, U * kT of them a CTA
   const long long groups = d / V;
-  const long long stride = static_cast<long long>(gridDim.x) * U * kT;
-  long long g0 = static_cast<long long>(blockIdx.x) * U * kT + tid;
-  float x[U][NC][V];
-  if (TIER::pipe) load_step<kT>(x, w, g0, groups, n, d);
-  for (; g0 < groups; g0 += stride) {
-    if (TIER::pipe) {
-      float next[U][NC][V];
-      load_step<kT>(next, w, g0 + stride, groups, n, d);
-      step_sums<STATS, kT>(x, ms, acc, b, theta, g0, groups, k, d);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) x[u][i][v] = next[u][i][v];
-        }
-      }
-    } else {
-      load_step<kT>(x, w, g0, groups, n, d);
-      step_sums<STATS, kT>(x, ms, acc, b, theta, g0, groups, k, d);
-    }
-  }
-
-  // this CTA's row of partials, then the ticket (the pattern of a grid-wide
-  // barrier: the CTA's barrier, then one thread's fence and atomic)
-  constexpr int kPairs = NC * KC;
-  cta_sum<false, kT>(acc, red,
-                     partials + static_cast<long long>(kPairs) * blockIdx.x, n,
-                     k);
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) __threadfence();
-  }
-  __syncthreads();
-  if (!last) return;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-#pragma unroll
-    for (int j = 0; j < KC; ++j) acc[i][j] = 0.f;
-  }
-  // one row of partials a thread (the wrapper keeps gridDim.x <= kT): all
-  // loads in one round
-  for (int c = tid; c < static_cast<int>(gridDim.x); c += kT) {
-    const float* row = partials + static_cast<long long>(kPairs) * c;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-#pragma unroll
-      for (int j = 0; j < KC; ++j) acc[i][j] += __ldcg(row + i * KC + j);
-    }
-  }
-  cta_sum<true, kT>(acc, red, out, n, k);
-  if (tid == 0) *ticket = 0u;  // ready for the next launch on this stream
+  struct Step {
+    float x[U][NC][V];
+  };
+  sweep<TIER, V, Step>(
+      groups,
+      [&](Step& s, long long g0) {
+        load_step<kT>(s.x, w, g0, groups, n, d);
+      },
+      [&](const Step& s, long long g0) {
+        step_sums<STATS, kT>(s.x, ms, acc, b, theta, g0, groups, k, d);
+      });
+  grid_tail<kT>(acc, red, partials, ticket, out, n, k);
 }
 
 // ---------------------------------------------------------------- tile route
@@ -528,32 +345,18 @@ bool shape_ok(int n, long long d, int k) {
          d >= 1;
 }
 
-// Whether a register tier with vector width v takes this W.
-template <class TIER>
-bool reg_ok(int v, size_t elem, const void* w, int n, long long d, int k) {
-  const bool fits = TIER::exact ? n == TIER::n && k == TIER::k
-                                : n <= TIER::n && k <= TIER::k;
-  return fits && d % v == 0 &&
-         reinterpret_cast<uintptr_t>(w) % (v * elem) == 0;
-}
-
 template <typename T, bool STATS, class TIER, int V>
 cudaError_t reg_op(Op op, const Pass& p, int* grid, cudaFuncAttributes* attr) {
   const auto kernel = reg_sq_dists<T, STATS, TIER, V>;
-  constexpr long long kStep =
-      static_cast<long long>(TIER::groups(V)) * V * TIER::threads;
   switch (op) {
     case Op::kAttributes:
       return cudaFuncGetAttributes(attr, kernel);
-    case Op::kGrid: {
-      // at most one row of partials a thread of the last CTA
-      const long long work = (p.d + kStep - 1) / kStep;
-      return fill_grid(kernel, TIER::threads, 0, p.device,
-                       work < TIER::threads ? work : TIER::threads, grid);
-    }
+    case Op::kGrid:
+      return sweep_grid<TIER, V>(kernel, p.device, p.d, grid);
     case Op::kLaunch:
-      if (!reg_ok<TIER>(V, sizeof(T), p.w, p.n, p.d, p.k) ||
-          p.ticket == nullptr || p.grid > TIER::threads) {
+      if (!tier_fits<TIER>(p.n, p.k) ||
+          !cols_aligned(V, sizeof(T), p.w, p.d) || p.ticket == nullptr ||
+          p.grid > TIER::threads) {
         return cudaErrorInvalidValue;
       }
       kernel<<<p.grid, TIER::threads, 0, p.stream>>>(

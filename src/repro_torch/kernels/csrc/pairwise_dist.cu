@@ -14,17 +14,41 @@
 // N = 10, K = 3, S = 256 f32: 0.004 us at 3.35 TB/s) and a call is bound by
 // its launch.
 //
-// Design, full width (D > kSmallD for sq_dists_to_points; every D for
-// pairwise_sq_dists).  The TPU kernels walk D in order into one resident
-// accumulator, in the Gram form.  Here, as in fused_round.cu, every CTA
-// takes a strided set of kTile-column tiles instead, so all SMs stream at
-// once:
+// Design, full width, sq_dists_to_points on a register tier (reg_dists,
+// N <= kRegN, K <= kRegK; D > kSmallD).  The register sweep of
+// fused_round.cu's pass 1 (reg_sweep.cuh), with the K rows read from P
+// instead of built from a mix: one CTA a SM, all CTAs sweeping D together;
+// each thread takes V adjacent columns of all N rows of W and all K rows of P
+// a step, straight from device memory into registers with streaming loads,
+// and sums (w_i - p_j)^2 in N*K f32 registers (the diff form: no Gram
+// cancellation).  One launch: each CTA writes a row of partials padded to
+// the tier's caps, and the last CTA (integer ticket) sums the rows in a fixed
+// tree, clamps at 0 and writes out.  No float atomics; the grid depends only
+// on the shape and the card, so repeats are bit-identical.  Tiers: ExactTier
+// compiled for (N, K) = (kExactN, kExactK), the composed round's shape at the
+// CLI's defaults, with the next step's loads issued before this step's
+// arithmetic (13 rows x 2 columns in flight a step, 30 sums: ~100 registers
+// at 512 threads); RegsTier for every other N <= kRegN, K <= kRegK, with no
+// predicate in the sweep (rows past N or K read the last row again, and their
+// sums are dropped), 384 threads.  V = 2 where D is even and both bases are
+// 2-element aligned, else 1 (rows of D = 582,026 f32 are 8-byte aligned).
+// W and P each template on their dtype: 4 mixes.
+//
+// Why the first full-width design (tile_dists) reached 23% of the bound: each
+// CTA staged a 256-column tile of all N + K rows in shared memory and read it
+// back once per (pair, column), with two barriers a tile and a second launch
+// for the partials (the faults fused_round.cu's source note gives for its
+// own first design).
+//
+// Design, tile_dists: pairwise_sq_dists at every D, and sq_dists_to_points
+// above the register tiers' caps (N > kRegN or K > kRegK, D > kSmallD).
+// Every CTA takes a strided set of kTile-column tiles:
 //   1. stage the tile of W (and of P) in shared memory as f32, zero past the
 //      ragged edge of D (zero columns add nothing to any sum);
 //   2. accumulate sum (x - y)^2 per (row pair, lane) item in registers, in the
-//      diff form (more accurate than Gram, and as cheap at these N*K); when
-//      there are fewer pairs than threads, several lanes of threads split the
-//      tile's columns.  pairwise_sq_dists takes only the N(N-1)/2 pairs i < j.
+//      diff form; when there are fewer pairs than threads, several lanes of
+//      threads split the tile's columns.  pairwise_sq_dists takes only the
+//      N(N-1)/2 pairs i < j.
 // At the end each CTA reduces its lanes in a fixed order and writes one
 // (npairs,) partial; a second launch sums the partials of all CTAs in a fixed
 // tree order, clamps at 0 and writes the output (both halves of the symmetric
@@ -43,14 +67,17 @@
 // order, and a fixed __shfl_xor tree reduces the warp; lane 0 clamps at 0
 // and writes.  No shared memory, no __syncthreads, no atomics: deterministic.
 //
+// Routes of sq_dists_to_points (the wrapper's route(); the entry points
+// refuse a route the shape does not fit): warp_dists at D <= kSmallD;
+// reg_dists<ExactTier> at (kExactN, kExactK), reg_dists<RegsTier> at other
+// N <= kRegN, K <= kRegK, each with V = 2 or 1; tile_dists above the caps.
+//
 // Limits (the entry points return cudaErrorInvalidValue beyond them):
 //   sq_dists_to_points  1 <= N <= kMaxN, 1 <= K <= kMaxK, N*K <= kMaxPairs;
 //   pairwise_sq_dists   1 <= N <= kMaxPairwiseN (N(N-1)/2 <= kMaxPairs);
 //   D >= 1.
 
-#include <cstdint>
-
-#include "common.cuh"
+#include "reg_sweep.cuh"
 
 namespace {
 
@@ -64,6 +91,24 @@ constexpr int kMaxK = 64;
 constexpr int kMaxPairwiseN = 64;         // 64 * 63 / 2 = 2016 pairs
 constexpr long long kSmallD = 8 * kTile;  // the sketch widths, D <= 2048
 constexpr int kSmallWarps = 8;            // pairs of a warp_dists CTA
+
+constexpr int kRegN = 16;                 // N and K caps of the register route
+constexpr int kRegK = 4;
+constexpr int kExactN = 10;               // the shape with a kernel of its own
+constexpr int kExactK = 3;
+
+// Routes of sq_dists_to_points (the entry points' `route`): the tile kernel,
+// a register tier loading 1 or 2 columns of a row at a time, or the warp
+// kernel of the sketch widths.
+constexpr int kRouteTile = 0;
+constexpr int kRouteRegs1 = 1;
+constexpr int kRouteRegs2 = 2;
+constexpr int kRouteExact1 = 3;
+constexpr int kRouteExact2 = 4;
+constexpr int kRouteWarp = 5;
+
+using RegsTier = Tier<kRegN, kRegK, false, 1, false, 384>;
+using ExactTier = Tier<kExactN, kExactK, true, 2, true, 512>;
 
 __host__ __device__ inline int num_pairs(bool pairwise, int n, int k) {
   return pairwise ? n * (n - 1) / 2 : n * k;
@@ -270,19 +315,80 @@ __global__ void __launch_bounds__(kSmallWarps * 32)
   if (lane == 0) out[pair] = fmaxf(acc, 0.f);
 }
 
-template <typename TW, typename TP>
-cudaError_t launch_small(const void* w, const void* p, float* out, int n,
-                         long long d, int k, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const int vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  const int ctas = (n * k + kSmallWarps - 1) / kSmallWarps;
-  warp_dists<TW, TP><<<ctas, kSmallWarps * 32, 0, stream>>>(
-      static_cast<const TW*>(w), static_cast<const TP*>(p), out, n,
-      static_cast<int>(d), k, vec);
-  return cudaGetLastError();
+// sq_dists_to_points at full width on a register tier: each thread sums
+// (w[i] - p[j])^2 over its columns for every (i, j) below the caps in
+// registers; grid_tail sums the CTAs' rows.  V: columns a load takes
+// (d % V == 0, both bases V-element aligned).  partials (gridDim.x,
+// TIER::n * TIER::k) scratch; ticket a zeroed counter; out (n, k).
+template <typename TW, typename TP, class TIER, int V>
+__global__ void __launch_bounds__(TIER::threads, 1)
+    reg_dists(const TW* __restrict__ w, const TP* __restrict__ p,
+              float* __restrict__ partials, unsigned* __restrict__ ticket,
+              float* __restrict__ out, int n_in, long long d, int k_in) {
+  constexpr int NC = TIER::n;
+  constexpr int KC = TIER::k;
+  constexpr int U = TIER::groups(V);
+  constexpr int kT = TIER::threads;
+  const int n = TIER::exact ? NC : n_in;
+  const int k = TIER::exact ? KC : k_in;
+  __shared__ float red[TIER::warps * NC * KC];
+
+  float acc[NC][KC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) acc[i][j] = 0.f;
+  }
+  const long long groups = d / V;
+  struct Step {
+    float x[U][NC][V];
+    float y[U][KC][V];
+  };
+  // groups past the end load zeros in both operands: they add nothing
+  sweep<TIER, V, Step>(
+      groups,
+      [&](Step& s, long long g0) {
+        load_step<kT>(s.x, w, g0, groups, n, d);
+        load_step<kT>(s.y, p, g0, groups, k, d);
+      },
+      [&](const Step& s, long long) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+#pragma unroll
+            for (int j = 0; j < KC; ++j) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                const float diff = s.x[u][i][v] - s.y[u][j][v];
+                acc[i][j] = fmaf(diff, diff, acc[i][j]);
+              }
+            }
+          }
+        }
+      });
+  grid_tail<kT>(acc, red, partials, ticket, out, n, k);
 }
+
+// ---------------------------------------------------------------- dispatch
+
+// Everything a sq_dists_to_points launch needs; ticket is used by the
+// register routes only, partials by the register and tile routes.
+struct Dists {
+  const void* w;
+  const void* p;
+  float* partials;
+  unsigned* ticket;
+  float* out;
+  int n;
+  long long d;
+  int k;
+  int grid;
+  int device;
+  cudaStream_t stream;
+};
+
+enum class Op { kLaunch, kGrid, kAttributes };
 
 bool shape_ok(bool pairwise, int n, long long d, int k) {
   if (d < 1 || n < 1) return false;
@@ -290,10 +396,57 @@ bool shape_ok(bool pairwise, int n, long long d, int k) {
   return n <= kMaxN && k >= 1 && k <= kMaxK && n * k <= kMaxPairs;
 }
 
+template <typename TW, typename TP, class TIER, int V>
+cudaError_t reg_op(Op op, const Dists& a, int* grid,
+                   cudaFuncAttributes* attr) {
+  const auto kernel = reg_dists<TW, TP, TIER, V>;
+  switch (op) {
+    case Op::kAttributes:
+      return cudaFuncGetAttributes(attr, kernel);
+    case Op::kGrid:
+      return sweep_grid<TIER, V>(kernel, a.device, a.d, grid);
+    case Op::kLaunch:
+      if (!tier_fits<TIER>(a.n, a.k) ||
+          !cols_aligned(V, sizeof(TW), a.w, a.d) ||
+          !cols_aligned(V, sizeof(TP), a.p, a.d) || a.ticket == nullptr ||
+          a.grid > TIER::threads) {
+        return cudaErrorInvalidValue;
+      }
+      kernel<<<a.grid, TIER::threads, 0, a.stream>>>(
+          static_cast<const TW*>(a.w), static_cast<const TP*>(a.p),
+          a.partials, a.ticket, a.out, a.n, a.d, a.k);
+      return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename TW, typename TP>
+cudaError_t warp_op(Op op, const Dists& a, int* grid,
+                    cudaFuncAttributes* attr) {
+  const auto kernel = warp_dists<TW, TP>;
+  switch (op) {
+    case Op::kAttributes:
+      return cudaFuncGetAttributes(attr, kernel);
+    case Op::kGrid:
+      *grid = 1;  // the launch sizes itself; no partials
+      return cudaSuccess;
+    case Op::kLaunch: {
+      if (a.d > kSmallD) return cudaErrorInvalidValue;
+      const int vec = a.d % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.w) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.p) % 16 == 0;
+      const int ctas = (a.n * a.k + kSmallWarps - 1) / kSmallWarps;
+      kernel<<<ctas, kSmallWarps * 32, 0, a.stream>>>(
+          static_cast<const TW*>(a.w), static_cast<const TP*>(a.p), a.out,
+          a.n, static_cast<int>(a.d), a.k, vec);
+      return cudaGetLastError();
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename TW, typename TP, bool PAIRWISE>
-cudaError_t prepare(int n, int k, int device, size_t* smem) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+cudaError_t prepare(int n, int k, size_t* smem) {
   *smem = smem_bytes(PAIRWISE, n, k);
   return cudaFuncSetAttribute(tile_dists<TW, TP, PAIRWISE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -301,13 +454,13 @@ cudaError_t prepare(int n, int k, int device, size_t* smem) {
 }
 
 template <typename TW, typename TP, bool PAIRWISE>
-cudaError_t grid_for(int n, long long d, int k, int device, int* grid) {
+cudaError_t tile_grid(int n, long long d, int k, int device, int* grid) {
   if (d <= kSmallD || num_pairs(PAIRWISE, n, k) == 0) {
     *grid = 1;
     return cudaSuccess;
   }
   size_t smem = 0;
-  cudaError_t err = prepare<TW, TP, PAIRWISE>(n, k, device, &smem);
+  cudaError_t err = prepare<TW, TP, PAIRWISE>(n, k, &smem);
   if (err != cudaSuccess) return err;
   const long long ntiles = (d + kTile - 1) / kTile;
   return fill_grid(tile_dists<TW, TP, PAIRWISE>, kThreads, smem, device,
@@ -315,11 +468,11 @@ cudaError_t grid_for(int n, long long d, int k, int device, int* grid) {
 }
 
 template <typename TW, typename TP, bool PAIRWISE>
-cudaError_t launch(const void* w, const void* p, float* partials, float* out,
-                   int n, long long d, int k, int grid, int device,
-                   cudaStream_t stream) {
+cudaError_t tile_launch(const void* w, const void* p, float* partials,
+                        float* out, int n, long long d, int k, int grid,
+                        cudaStream_t stream) {
   size_t smem = 0;
-  cudaError_t err = prepare<TW, TP, PAIRWISE>(n, k, device, &smem);
+  cudaError_t err = prepare<TW, TP, PAIRWISE>(n, k, &smem);
   if (err != cudaSuccess) return err;
   tile_dists<TW, TP, PAIRWISE><<<grid, kThreads, smem, stream>>>(
       static_cast<const TW*>(w), static_cast<const TP*>(p), partials, out, n,
@@ -332,66 +485,134 @@ cudaError_t launch(const void* w, const void* p, float* partials, float* out,
   return cudaGetLastError();
 }
 
+template <typename TW, typename TP>
+cudaError_t tile_op(Op op, const Dists& a, int* grid,
+                    cudaFuncAttributes* attr) {
+  switch (op) {
+    case Op::kAttributes:
+      return cudaFuncGetAttributes(attr, tile_dists<TW, TP, false>);
+    case Op::kGrid:
+      return tile_grid<TW, TP, false>(a.n, a.d, a.k, a.device, grid);
+    case Op::kLaunch:
+      return tile_launch<TW, TP, false>(a.w, a.p, a.partials, a.out, a.n, a.d,
+                                        a.k, a.grid, a.stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename TW, typename TP>
+cudaError_t by_route(int route, Op op, const Dists& a, int* grid,
+                     cudaFuncAttributes* attr) {
+  switch (route) {
+    case kRouteTile: return tile_op<TW, TP>(op, a, grid, attr);
+    case kRouteRegs1: return reg_op<TW, TP, RegsTier, 1>(op, a, grid, attr);
+    case kRouteRegs2: return reg_op<TW, TP, RegsTier, 2>(op, a, grid, attr);
+    case kRouteExact1: return reg_op<TW, TP, ExactTier, 1>(op, a, grid, attr);
+    case kRouteExact2: return reg_op<TW, TP, ExactTier, 2>(op, a, grid, attr);
+    case kRouteWarp: return warp_op<TW, TP>(op, a, grid, attr);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 using bf16 = __nv_bfloat16;
+
+cudaError_t run(int w_bf16, int p_bf16, int route, Op op, const Dists& a,
+                int* grid = nullptr, cudaFuncAttributes* attr = nullptr) {
+  cudaError_t err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return err;
+  if (w_bf16) {
+    return p_bf16 ? by_route<bf16, bf16>(route, op, a, grid, attr)
+                  : by_route<bf16, float>(route, op, a, grid, attr);
+  }
+  return p_bf16 ? by_route<float, bf16>(route, op, a, grid, attr)
+                : by_route<float, float>(route, op, a, grid, attr);
+}
 
 }  // namespace
 
 extern "C" {
 
-// The shape limits: sq_dists_to_points takes N <= max_n, K <= max_k,
-// N*K <= max_pairs; pairwise_sq_dists takes N <= max_pairwise_n.
-void pd_limits(int* max_n, int* max_k, int* max_pairs, int* max_pairwise_n) {
+// The shape limits (sq_dists_to_points takes N <= max_n, K <= max_k,
+// N*K <= max_pairs; pairwise_sq_dists takes N <= max_pairwise_n), the
+// largest D of the warp route, the register tiers' N and K caps, and the
+// (N, K) of the exact tier.
+void pd_limits(int* max_n, int* max_k, int* max_pairs, int* max_pairwise_n,
+               int* small_d, int* reg_n, int* reg_k, int* exact_n,
+               int* exact_k) {
   *max_n = kMaxN;
   *max_k = kMaxK;
   *max_pairs = kMaxPairs;
   *max_pairwise_n = kMaxPairwiseN;
+  *small_d = static_cast<int>(kSmallD);
+  *reg_n = kRegN;
+  *reg_k = kRegK;
+  *exact_n = kExactN;
+  *exact_k = kExactK;
 }
 
-// Number of CTAs a launch uses for this shape (the columns of `partials`;
-// 1 means the kernel writes the output itself and `partials` is unused).
-// pairwise = 1 for pairwise_sq_dists (k ignored); w_bf16 / p_bf16 = 1 when
-// W / P is bfloat16.
-int pd_grid(int pairwise, int w_bf16, int p_bf16, int n, long long d, int k,
-            int device, int* grid) {
+// Number of CTAs a launch uses for this shape and route, and the floats of
+// scratch (`partials`) it needs: (npairs, grid) on the tile route when grid
+// > 1 (1 means the kernel writes the output itself), a row of the tier's
+// caps a CTA on a register route, none on the warp route.  pairwise = 1 for
+// pairwise_sq_dists (k ignored; route must be the tile route); w_bf16 /
+// p_bf16 = 1 when W / P is bfloat16.
+int pd_grid(int pairwise, int w_bf16, int p_bf16, int route, int n,
+            long long d, int k, int device, int* grid, long long* scratch) {
   if (!shape_ok(pairwise, n, d, k)) return cudaErrorInvalidValue;
+  cudaError_t err;
   if (pairwise) {
-    return w_bf16 ? grid_for<bf16, bf16, true>(n, d, k, device, grid)
-                  : grid_for<float, float, true>(n, d, k, device, grid);
+    if (route != kRouteTile) return cudaErrorInvalidValue;
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    err = w_bf16 ? tile_grid<bf16, bf16, true>(n, d, k, device, grid)
+                 : tile_grid<float, float, true>(n, d, k, device, grid);
+  } else {
+    Dists a{};
+    a.n = n;
+    a.d = d;
+    a.k = k;
+    a.device = device;
+    err = run(w_bf16, p_bf16, route, Op::kGrid, a, grid);
   }
-  if (w_bf16) {
-    return p_bf16 ? grid_for<bf16, bf16, false>(n, d, k, device, grid)
-                  : grid_for<bf16, float, false>(n, d, k, device, grid);
+  if (err != cudaSuccess) return err;
+  const bool exact = route == kRouteExact1 || route == kRouteExact2;
+  const bool regs = exact || route == kRouteRegs1 || route == kRouteRegs2;
+  long long rows = 0;
+  if (regs) {
+    rows = exact ? kExactN * kExactK : kRegN * kRegK;
+  } else if (route == kRouteTile && *grid > 1) {
+    rows = num_pairs(pairwise, n, k);
   }
-  return p_bf16 ? grid_for<float, bf16, false>(n, d, k, device, grid)
-                : grid_for<float, float, false>(n, d, k, device, grid);
+  *scratch = rows * *grid;
+  return cudaSuccess;
 }
 
-// w (n, d) and p (k, d) row-major, each f32 or bf16; partials (n*k, grid) f32
-// scratch; out (n, k) f32.
+// The compiled sq_dists_to_points kernel of (W dtype, P dtype, route):
+// registers a thread and local memory a thread (bytes: spills).
+int pd_kernel_attributes(int w_bf16, int p_bf16, int route, int device,
+                         int* regs, int* local_bytes) {
+  Dists a{};
+  a.device = device;
+  cudaFuncAttributes attr{};
+  const cudaError_t err = run(w_bf16, p_bf16, route, Op::kAttributes, a,
+                              nullptr, &attr);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
+// w (n, d) and p (k, d) row-major, each f32 or bf16; partials f32 scratch of
+// the length pd_grid gives; ticket one zeroed 32-bit counter (register
+// routes); out (n, k) f32.
 int pd_sq_dists_to_points(const void* w, int w_bf16, const void* p,
-                          int p_bf16, float* partials, float* out, int n,
-                          long long d, int k, int grid, int device,
-                          void* stream) {
+                          int p_bf16, int route, float* partials,
+                          void* ticket, float* out, int n, long long d, int k,
+                          int grid, int device, void* stream) {
   if (!shape_ok(false, n, d, k) || grid < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= kSmallD) {
-    if (w_bf16) {
-      return p_bf16 ? launch_small<bf16, bf16>(w, p, out, n, d, k, device, s)
-                    : launch_small<bf16, float>(w, p, out, n, d, k, device, s);
-    }
-    return p_bf16 ? launch_small<float, bf16>(w, p, out, n, d, k, device, s)
-                  : launch_small<float, float>(w, p, out, n, d, k, device, s);
-  }
-  if (w_bf16) {
-    return p_bf16 ? launch<bf16, bf16, false>(w, p, partials, out, n, d, k,
-                                              grid, device, s)
-                  : launch<bf16, float, false>(w, p, partials, out, n, d, k,
-                                               grid, device, s);
-  }
-  return p_bf16 ? launch<float, bf16, false>(w, p, partials, out, n, d, k,
-                                             grid, device, s)
-                : launch<float, float, false>(w, p, partials, out, n, d, k,
-                                              grid, device, s);
+  const Dists a{w, p, partials, static_cast<unsigned*>(ticket), out, n, d, k,
+                grid, device, static_cast<cudaStream_t>(stream)};
+  return run(w_bf16, p_bf16, route, Op::kLaunch, a);
 }
 
 // w (n, d) row-major f32 or bf16; partials (n(n-1)/2, grid) f32 scratch;
@@ -400,13 +621,15 @@ int pd_pairwise_sq_dists(const void* w, int bf16_in, float* partials,
                          float* out, int n, long long d, int grid, int device,
                          void* stream) {
   if (!shape_ok(true, n, d, 0) || grid < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_in) {
-    return launch<bf16, bf16, true>(w, w, partials, out, n, d, 0, grid, device,
-                                    s);
+    return tile_launch<bf16, bf16, true>(w, w, partials, out, n, d, 0, grid,
+                                         s);
   }
-  return launch<float, float, true>(w, w, partials, out, n, d, 0, grid, device,
-                                    s);
+  return tile_launch<float, float, true>(w, w, partials, out, n, d, 0, grid,
+                                         s);
 }
 
 }  // extern "C"

@@ -15,8 +15,9 @@ the current stream and raises if the launch fails.  It adds one to
 :data:`LAUNCHES` per launch.  Each shape's CTA count is asked of the library
 once, so a call is one C call after the first.  The register kernel's
 last CTA sums the partials of all CTAs; it finds itself by a ticket, a
-zeroed 32-bit counter kept here for each device and stream, which that CTA
-sets back to 0.  The plain versions are in :mod:`repro_torch.kernels.ref`;
+zeroed 32-bit counter kept for each device and stream by
+:mod:`repro_torch.kernels.reg_sweep`, which that CTA sets back to 0.  The
+plain versions are in :mod:`repro_torch.kernels.ref`;
 :mod:`repro_torch.kernels.ops` picks between the two by the tensor's device.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, reg_sweep
 
 #: launches of each kernel in this process (see :func:`reset_launch_counts`)
 LAUNCHES = {"center_sq_dists": 0, "fused_coalition_stats": 0}
@@ -49,8 +50,6 @@ _lib: ctypes.CDLL | None = None
 #: (CTAs, floats of scratch) of a launch, by (pass 2?, bf16?, route, N, D, K,
 #: device index)
 _GRIDS: dict[tuple[bool, bool, str, int, int, int, int], tuple[int, int]] = {}
-#: the register kernel's zeroed ticket, by (device index, stream)
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -71,7 +70,7 @@ def route(n: int, k: int, d: int, dtype: torch.dtype, data_ptr: int) -> str:
                          f"N*K <= {MAX_PAIRS}, D >= 1)")
     if n > REG_N or k > REG_K:
         return "tile"
-    v = 2 if d % 2 == 0 and data_ptr % (2 * dtype.itemsize) == 0 else 1
+    v = reg_sweep.vector_width(d, (2,), (dtype, data_ptr))
     return f"{'exact' if (n, k) == EXACT_NK else 'regs'}{v}"
 
 
@@ -144,10 +143,7 @@ def _launch(what: str, w: torch.Tensor, mix: torch.Tensor,
         _GRIDS[key] = grid.value, scratch.value
     grid, scratch = _GRIDS[key]
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    ticket = _TICKETS.get((dev, stream))
-    if ticket is None:
-        ticket = _TICKETS[(dev, stream)] = torch.zeros(
-            1, dtype=torch.int32, device=w.device)
+    ticket = reg_sweep.ticket(w.device, stream)
     partials = torch.empty((scratch,), dtype=torch.float32, device=w.device)
     *stats_out, out = (t.data_ptr() for t in outs)
     fn = lib.fr_fused_coalition_stats if stats else lib.fr_center_sq_dists

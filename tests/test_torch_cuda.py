@@ -27,7 +27,10 @@ The fused-round kernels are swept over D at every row alignment, N in
 {1, 2, 10, 16, 64} and K in {1, 3, N} on every route (the exact (10, 3)
 tier, the general register tier and the tile kernel), in f32 and bf16 and
 on an unaligned base; two calls must agree bit for bit, each call must move
-its launch counter by one, and no kernel may spill.
+its launch counter by one, and no kernel may spill.  ``sq_dists_to_points``
+at full width (D > 2048) and ``segment_sum`` are swept the same way over
+their register routes and the kernels above them, for every W / points
+dtype mix and on bases one element off, with the same checks.
 """
 import numpy as np
 import pytest
@@ -38,6 +41,7 @@ from repro_torch.kernels import fused_round as tfr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import reg_sweep as tsweep
 from repro_torch.kernels import segment_mean as tsm
 
 TOL = 5e-6
@@ -373,7 +377,7 @@ def test_cuda_fused_round_sweep(n, k, d, dtype):
         _close(got, ref)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert torch.all(first[0] >= 0) and torch.all(first[3] >= 0)
-    assert all(int(t) == 0 for t in tfr._TICKETS.values())
+    assert all(int(t) == 0 for t in tsweep.TICKETS.values())
 
 
 @pytest.mark.cuda
@@ -403,4 +407,132 @@ def test_cuda_fused_round_kernels_do_not_spill(name, dtype, stats):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     attrs = tfr.kernel_attributes(stats, getattr(torch, dtype), name)
+    assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
+
+
+#: the full-width sq_dists_to_points and segment-sum sweeps: (N, K) on the
+#: distances' exact (10, 3) tier, the general register tier (N <= 16,
+#: K <= 4) and above it (the tile and column kernels)
+SWEEP_NK = [(1, 1), (10, 3), (9, 3), (16, 4), (17, 3), (64, 8)]
+#: full widths at each row alignment (f32 rows of 4, 8 and 16 bytes)
+FULL_D = [2049, 2050, 4096, 582_026, 1_000_003]
+
+
+def _points(k, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    return p.to(getattr(torch, dtype)).cuda()
+
+
+def _to_points_calls(w, p):
+    """Two calls; each must move the launch counter by one."""
+    outs = []
+    for _ in range(2):
+        before = tpd.LAUNCHES["sq_dists_to_points"]
+        outs.append(tpd.sq_dists_to_points(w, p))
+        assert tpd.LAUNCHES["sq_dists_to_points"] == before + 1
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,pdt", MIXES)
+@pytest.mark.parametrize("d", FULL_D)
+@pytest.mark.parametrize("n,k", SWEEP_NK)
+def test_cuda_sq_dists_to_points_full_width_sweep(n, k, d, wdt, pdt):
+    """Every full-width route against the plain version; two calls on the
+    same inputs are bit-identical, and the tickets are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(n, 1, d, wdt)
+    p = _points(k, d, pdt, seed=n * k + d)
+    name = tpd.route(n, k, d, w.dtype, w.data_ptr(), p.dtype, p.data_ptr())
+    assert name != "warp"
+    got, again = _to_points_calls(w, p)
+    torch.cuda.synchronize()
+    _close(got, tref.sq_dists_to_points(w, p))
+    assert torch.equal(got, again) and torch.all(got >= 0)
+    assert all(int(t) == 0 for t in tsweep.TICKETS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", FUSED_D)
+@pytest.mark.parametrize("n,k", SWEEP_NK)
+def test_cuda_segment_sum_sweep(n, k, d, dtype):
+    """Every segment-sum route against the plain version, with a weighted
+    mix; two calls on the same inputs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(n, 1, d, dtype)
+    rng = np.random.default_rng(n + k + d)
+    mix = torch.from_numpy(rng.random((k, n)).astype(np.float32)).cuda()
+    outs = []
+    for _ in range(2):
+        before = tsm.LAUNCHES["segment_sum"]
+        outs.append(tsm.segment_sum(mix, w))
+        assert tsm.LAUNCHES["segment_sum"] == before + 1
+    torch.cuda.synchronize()
+    _close(outs[0], tref.segment_sum(mix, w))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,pdt", MIXES)
+def test_cuda_sq_dists_to_points_full_width_on_unaligned_rows(wdt, pdt):
+    """W or the points one element past a 16-byte boundary take a register
+    route one column at a time, and agree with the aligned inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = 4096
+    for n, k, tier in ((10, 3, "exact"), (7, 2, "regs")):
+        w, _, _ = _inputs(n, 1, d, wdt)
+        p = _points(k, d, pdt, seed=n)
+        want = tpd.sq_dists_to_points(w, p)
+        assert tpd.route(n, k, d, w.dtype, w.data_ptr(), p.dtype,
+                         p.data_ptr()) == tier + "2"
+        for ws, ps in ((_offset_view(w, 1), p), (w, _offset_view(p, 1))):
+            assert ws.is_contiguous() and ps.is_contiguous()
+            assert tpd.route(n, k, d, ws.dtype, ws.data_ptr(), ps.dtype,
+                             ps.data_ptr()) == tier + "1"
+            _close(tpd.sq_dists_to_points(ws, ps), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_segment_sum_on_unaligned_rows(dtype):
+    """W one or two elements past a 16-byte boundary takes a register route
+    one or two columns at a time, and agrees with the aligned W."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = 4096
+    for n, k in ((10, 3), (7, 2)):
+        w, _, m = _inputs(n, k, d, dtype)
+        want = tsm.segment_sum(m, w)
+        assert tsm.route(n, k, d, w.dtype, w.data_ptr()) == "regs4"
+        for lead, v in ((1, 1), (2, 2)):
+            ws = _offset_view(w, lead)
+            assert tsm.route(n, k, d, ws.dtype, ws.data_ptr()) == f"regs{v}"
+            _close(tsm.segment_sum(m, ws), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,pdt", MIXES)
+@pytest.mark.parametrize("name", sorted(tpd.ROUTES))
+def test_cuda_sq_dists_to_points_kernels_do_not_spill(name, wdt, pdt):
+    """No sq_dists_to_points kernel keeps local memory (ptxas spills)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    attrs = tpd.kernel_attributes(getattr(torch, wdt), getattr(torch, pdt),
+                                  name)
+    assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(tsm.ROUTES))
+def test_cuda_segment_sum_kernels_do_not_spill(name, dtype):
+    """No segment-sum kernel keeps local memory (ptxas spills)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    attrs = tsm.kernel_attributes(getattr(torch, dtype), name)
     assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
