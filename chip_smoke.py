@@ -11,16 +11,17 @@ In order, it
      build time, the ptxas report and, from ``cudaFuncGetAttributes``, each
      ``flash_attention`` kernel's registers a thread, shared memory a CTA and
      local memory (spills) a thread, and the registers and local memory of
-     every route of the fused round, ``sq_dists_to_points`` and
-     ``segment_sum`` (any spill fails);
+     every route of the fused round, ``sq_dists_to_points``,
+     ``pairwise_sq_dists`` and ``segment_sum`` (any spill fails);
   3. holds each kernel against its plain PyTorch version on the card: the
      fused-round kernels at the main path's shape (N = 10, K = 3,
      D = 582,026, f32, and in bf16), at a ragged shape with larger N and K,
      at a small bf16 shape and at D = 8,000,000, each with the route it
      took; the distance and segment-sum kernels at those shapes (with their
      routes) and at the sketch widths D = S in {1, 64, 255, 256, 1024, 2048}
-     (f32, and bf16 at 256), ``pairwise_sq_dists``
-     with its diagonal exactly 0.  The max error must stay within 5e-6 of
+     (f32, and bf16 at 256), ``pairwise_sq_dists`` (its route from
+     ``pairwise_route``) symmetric bit for bit, with its diagonal exactly 0
+     and a repeat equal bit for bit.  The max error must stay within 5e-6 of
      the max for both dtypes (kernel and plain version upcast the same bf16
      values to f32), and the launch counters must move.  ``flash_attention``
      at the reference's sweep in f32 and bf16, at the pretrain path's shape
@@ -53,8 +54,8 @@ In order, it
      set to 0 just before: ``sq_dists_to_points`` twice and ``segment_sum``
      once per server step, the fused-round kernels never, accuracy > 0.1;
      then ``distance.pairwise_sq_dists(W, backend="cuda")`` on that run's
-     last client matrix, counters set to 0 just before, held to its plain
-     version;
+     last client matrix, counters set to 0 just before (its launches
+     recorded by route and D), held to its plain version;
   8. the framework-scale phase (N = 10, K = 3, D = 8,000,000 f32, three
      clusters): the exact geometry, as two full-W ``sq_dists_to_points``
      (the gather of the centers timed apart) and as the fused round's two
@@ -66,7 +67,10 @@ In order, it
      before (two ``sq_dists_to_points`` and one ``segment_sum``, its
      assignment equal to the exact geometry's); both fused-round kernels,
      ``sq_dists_to_points`` and the segment sum timed at this D beside their
-     bounds (``torch.cdist`` as the distances' yardstick); the sketch builds
+     bounds (``torch.cdist`` as the distances' yardstick);
+     ``distance.pairwise_sq_dists(W, backend="cuda")`` at this D, counters
+     set to 0 just before, held to its plain version, and the kernel timed
+     beside its bound and ``torch.cdist(w, w)**2``; the sketch builds
      timed at this D and at the main path's;
   9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
@@ -80,11 +84,13 @@ In order, it
       with torch.profiler (busy share, top kernels);
   11. prints the card again, one JSON line with every kernel's numbers (a
       line for each kernel at the shape its path gives it, and
-      ``sq_dists_to_points`` and ``segment_sum`` also at full width and at
-      D = 8M; each line's launches are those of the path that gives the
-      kernel that shape, at the line's route and D: the main path, the
-      sketch path, the composed round at the main width and at 8M, the
-      pairwise call, the pretrain path; a line with none fails), and last
+      ``sq_dists_to_points``, ``segment_sum`` and ``pairwise_sq_dists``
+      also at D = 8M, ``sq_dists_to_points`` also at full width; each
+      line's launches are those of the path that gives the kernel that
+      shape, at the line's route and D: the main path, the sketch path, the
+      composed round at the main width and at 8M, the pairwise calls at
+      the main width and at 8M, the pretrain path; a line with none fails),
+      and last
       ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 before any
@@ -213,9 +219,10 @@ def rel_err(got, want) -> tuple[float, float]:
 def path_run(fn):
     """Run ``fn`` with every launch counter set to 0 just before.  Returns
     its result, the counters just after, and how many of those launches of
-    ``sq_dists_to_points`` and ``segment_sum`` took each (kernel, route,
-    D): each wrapper asks its module's ``route`` once a launch, and that
-    function is wrapped for the run to record its answers."""
+    ``sq_dists_to_points``, ``segment_sum`` and ``pairwise_sq_dists`` took
+    each (kernel, route, D): each wrapper asks its module's route function
+    once a launch, and that function is wrapped for the run to record its
+    answers."""
     import collections
 
     from repro_torch.kernels import ops
@@ -223,27 +230,32 @@ def path_run(fn):
     from repro_torch.kernels import segment_mean as sm
 
     routes = collections.Counter()
-    saved = {mod: mod.route for mod in (pd, sm)}
+    # (module, route function's name, kernel, position of D in its args)
+    recorded = ((pd, "route", "sq_dists_to_points", 2),
+                (sm, "route", "segment_sum", 2),
+                (pd, "pairwise_route", "pairwise_sq_dists", 1))
+    saved = [getattr(mod, fname) for mod, fname, _, _ in recorded]
 
-    def recording(mod, name):
-        def route(n, k, d, *args):
-            got = saved[mod](n, k, d, *args)
-            routes[(name, got, d)] += 1
+    def recording(original, name, at):
+        def route(*args):
+            got = original(*args)
+            routes[(name, got, args[at])] += 1
             return got
         return route
 
-    pd.route = recording(pd, "sq_dists_to_points")
-    sm.route = recording(sm, "segment_sum")
+    for (mod, fname, name, at), original in zip(recorded, saved):
+        setattr(mod, fname, recording(original, name, at))
     try:
         ops.reset_launch_counts()
         out = fn()
         launches = ops.launch_counts()
     finally:
-        pd.route, sm.route = saved[pd], saved[sm]
-    for name in ("sq_dists_to_points", "segment_sum"):
-        recorded = sum(c for (kn, _, _), c in routes.items() if kn == name)
-        if recorded != launches[name]:
-            fail(f"{name}: {launches[name]} launches, but {recorded} routes "
+        for (mod, fname, _, _), original in zip(recorded, saved):
+            setattr(mod, fname, original)
+    for _, _, name, _ in recorded:
+        count = sum(c for (kn, _, _), c in routes.items() if kn == name)
+        if count != launches[name]:
+            fail(f"{name}: {launches[name]} launches, but {count} routes "
                  f"asked for")
     return out, launches, routes
 
@@ -309,7 +321,8 @@ def check_dist_kernels() -> dict:
                                                  w.data_ptr(), p.dtype,
                                                  p.data_ptr()),
                   "segment_sum": sm.route(n, k, d, w.dtype, w.data_ptr()),
-                  "pairwise_sq_dists": "tile"}
+                  "pairwise_sq_dists": pd.pairwise_route(n, d, w.dtype,
+                                                         w.data_ptr())}
         before = {**pd.LAUNCHES, **sm.LAUNCHES}
         got = {"sq_dists_to_points": pd.sq_dists_to_points(w, p),
                "segment_sum": sm.segment_sum(m, w),
@@ -334,9 +347,11 @@ def check_dist_kernels() -> dict:
         pw = got["pairwise_sq_dists"]
         if not (torch.all(torch.diagonal(pw) == 0) and torch.equal(pw, pw.T)
                 and torch.all(pw >= 0) and torch.all(
-                    got["sq_dists_to_points"] >= 0)):
+                    got["sq_dists_to_points"] >= 0)
+                and torch.equal(pd.pairwise_sq_dists(w), pw)):
             fail(f"pairwise_sq_dists at N={n} D={d}: diagonal not exactly 0, "
-                 f"not symmetric, or a distance below 0")
+                 f"not symmetric, a distance below 0, or a repeat that "
+                 f"differs")
         del w, p, m, got, want
         torch.cuda.empty_cache()
     return errs
@@ -496,6 +511,7 @@ def time_kernels() -> dict:
     s_p = s_w[:k].contiguous()
     wb = n * d * 4
     pairs = n * (n - 1) // 2
+    pair_route = pd.pairwise_route(n, d, w.dtype, w.data_ptr())
     out = {
         "center_sq_dists": timed_row(
             f"center_sq_dists N={n} K={k} D={d} f32",
@@ -517,13 +533,14 @@ def time_kernels() -> dict:
             lambda: m @ w, wb + 4 * (k * n + k * d), 2 * k * n * d,
             clean=True),
         "pairwise_sq_dists": timed_row(
-            f"pairwise_sq_dists N={n} D={d} f32",
+            f"pairwise_sq_dists N={n} D={d} f32 (route {pair_route})",
             lambda: pd.pairwise_sq_dists(w),
             lambda: ref.pairwise_sq_dists(w),
             lambda: torch.cdist(w, w) ** 2, wb + 4 * n * n,
             3 * pairs * d, clean=True)}
     out["segment_sum"]["kernel_route"] = sm.route(n, k, d, w.dtype,
                                                   w.data_ptr())
+    out["pairwise_sq_dists"]["kernel_route"] = pair_route
     full_route = pd.route(n, k, d, w.dtype, w.data_ptr(), centers.dtype,
                           centers.data_ptr())
     out["sq_dists_to_points full"] = timed_row(
@@ -554,10 +571,10 @@ def time_kernels() -> dict:
 
 
 def print_sweep_floor(n: int, k: int) -> None:
-    """The fixed cost of a register sweep on the main path's grid: both
+    """The fixed cost of a register sweep on the main path's grid: the
     full-width kernels at one step of the grid (D = 1024 columns a SM less
-    2, so that both load 2 columns at a time with one CTA a SM), clean L2.
-    The distances' launch ends in the last CTA's sum of every CTA's row;
+    2, so that each loads 2 columns at a time with one CTA a SM), clean L2.
+    The distances' launches end in the last CTA's sum of every CTA's row;
     the segment sum's has no tail."""
     import torch
 
@@ -570,13 +587,16 @@ def print_sweep_floor(n: int, k: int) -> None:
     mix = torch.ones((k, n), device="cuda") / n
     dist_route = pd.route(n, k, d, w.dtype, w.data_ptr(), p.dtype,
                           p.data_ptr())
+    pair_route = pd.pairwise_route(n, d, w.dtype, w.data_ptr())
     sum_route = sm.route(n, k, d, w.dtype, w.data_ptr())
     dist_us = time_ms(lambda: pd.sq_dists_to_points(w, p), clean=True) * 1e3
+    pair_us = time_ms(lambda: pd.pairwise_sq_dists(w), clean=True) * 1e3
     sum_us = time_ms(lambda: sm.segment_sum(mix, w), clean=True) * 1e3
     print(f"time one step of the sweep N={n} K={k} D={d} f32, clean L2: "
           f"sq_dists_to_points (route {dist_route}, with the last CTA's sum) "
-          f"{dist_us:.3f} us, segment_sum (route {sum_route}, no tail) "
-          f"{sum_us:.3f} us")
+          f"{dist_us:.3f} us, pairwise_sq_dists (route {pair_route}, with "
+          f"the last CTA's sum) {pair_us:.3f} us, segment_sum (route "
+          f"{sum_route}, no tail) {sum_us:.3f} us")
 
 
 def print_flash_attributes() -> None:
@@ -599,8 +619,8 @@ def print_flash_attributes() -> None:
 def check_sweep_attributes() -> None:
     """The registers a thread and local memory (spills) of every route of
     the fused round's two passes, sq_dists_to_points (each W / points dtype
-    mix) and segment_sum, as the CUDA runtime reports them; fails on any
-    spill."""
+    mix), pairwise_sq_dists and segment_sum, as the CUDA runtime reports
+    them; fails on any spill."""
     import torch
 
     from repro_torch.kernels import fused_round as fr
@@ -615,6 +635,9 @@ def check_sweep_attributes() -> None:
     kernels += [(f"sq_dists_to_points {name} W {str(wd)[6:]} P {str(pt)[6:]}",
                  lambda n=name, a=wd, b=pt: pd.kernel_attributes(a, b, n))
                 for name in pd.ROUTES for wd in dtypes for pt in dtypes]
+    kernels += [(f"pairwise_sq_dists {name} {str(dt)[6:]}",
+                 lambda n=name, d=dt: pd.pairwise_kernel_attributes(d, n))
+                for name in pd.PAIRWISE_ROUTES for dt in dtypes]
     kernels += [(f"segment_sum {name} {str(dt)[6:]}",
                  lambda n=name, d=dt: sm.kernel_attributes(d, n))
                 for name in sm.ROUTES for dt in dtypes]
@@ -822,25 +845,30 @@ def run_sketch_path():
 def run_pairwise(w) -> tuple[dict, float]:
     """Phase 7, last: distance.pairwise_sq_dists on the sketch run's client
     matrix through the cuda backend, counters reset just before; held to
-    the plain version.  Returns the launches and the max abs error."""
+    the plain version.  Returns the routes of its launches (see
+    :func:`path_run`) and the max abs error."""
     import torch
 
     from repro_torch.core import distance
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
-    ops.reset_launch_counts()
-    got = distance.pairwise_sq_dists(w, backend="cuda")
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    def pairwise():
+        got = distance.pairwise_sq_dists(w, backend="cuda")
+        torch.cuda.synchronize()
+        return got
+    got, launches, routes = path_run(pairwise)
     err, rel = rel_err(got, ref.pairwise_sq_dists(w))
     print(f"pairwise_sq_dists on the run's client matrix {tuple(w.shape)}: "
-          f"max abs err {err:.3e}, / max {rel:.3e}, launches {launches}")
+          f"max abs err {err:.3e}, / max {rel:.3e}, launches {launches}, by "
+          f"(kernel, route, D) {dict(routes)}")
     expect_launches("pairwise_sq_dists on the run's client matrix", launches,
                     {"pairwise_sq_dists": 1})
-    if not (rel <= TOL and torch.all(torch.diagonal(got) == 0)):
+    if not (rel <= TOL and torch.all(torch.diagonal(got) == 0)
+            and torch.equal(got, got.T)):
         fail("pairwise_sq_dists on the run's client matrix disagrees with "
-             "its plain version or has a diagonal that is not exactly 0")
-    return launches, err
+             "its plain version, is not symmetric or has a diagonal that is "
+             "not exactly 0")
+    return routes, err
 
 
 def run_pretrain_path() -> dict:
@@ -988,14 +1016,16 @@ def framework_scale() -> dict:
     benchmarks/run.py bench_federation_sketch), sq_dists_to_points and the
     segment sum at that D, and the sketch builds at the main path's D and
     at 8M; the composed round at 8M, counters set to 0 just before, whose
-    launches the two 8M rows of the kernels line count.  Returns those rows
-    by kernel name, each with its max abs error against the plain version,
-    its route, and the routes of the composed round's launches (see
-    :func:`path_run`) under "routes"."""
+    launches the two 8M rows of the kernels line count; pairwise_sq_dists
+    through the cuda backend at 8M, the same, and its kernel timed there.
+    Returns those rows by kernel name, each with its max abs error against
+    the plain version and its route, and the routes of the composed round's
+    and of the pairwise call's launches (see :func:`path_run`) under
+    "routes" and "pairwise routes"."""
     import torch
 
-    from repro_torch.core import backends, coalitions, fused, instrument
-    from repro_torch.core import sketch
+    from repro_torch.core import backends, coalitions, distance, fused
+    from repro_torch.core import instrument, sketch
     from repro_torch.kernels import fused_round as fr
     from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import ref
@@ -1099,6 +1129,27 @@ def framework_scale() -> dict:
         lambda: mix @ w, 4 * (n * d + k * n + k * d), 2 * k * n * d,
         clean=True)
     rows["segment_sum"].update(err=err, kernel_route=route)
+
+    def pairwise():
+        got = distance.pairwise_sq_dists(w, backend="cuda")
+        torch.cuda.synchronize()
+        return got
+    pw, pw_launches, rows["pairwise routes"] = path_run(pairwise)
+    label = f"pairwise_sq_dists N={n} D={d}"
+    expect_launches(label, pw_launches, {"pairwise_sq_dists": 1})
+    err, rel = rel_err(pw, ref.pairwise_sq_dists(w))
+    if not (rel <= TOL and torch.equal(pw, pw.T) and torch.all(pw >= 0)
+            and torch.all(torch.diagonal(pw) == 0)):
+        fail(f"{label} disagrees with its plain version, is not symmetric "
+             f"or has a diagonal that is not exactly 0")
+    route = pd.pairwise_route(n, d, w.dtype, w.data_ptr())
+    rows["pairwise_sq_dists"] = timed_row(
+        f"{label} f32 (route {route}, max abs err {err:.3e})",
+        lambda: pd.pairwise_sq_dists(w), lambda: ref.pairwise_sq_dists(w),
+        lambda: torch.cdist(w, w) ** 2, 4 * (n * d + n * n),
+        3 * n * (n - 1) // 2 * d, clean=True)
+    rows["pairwise_sq_dists"].update(err=err, kernel_route=route)
+    del pw
     for dd in (MAIN[2], d):
         wd = w[:, :dd].contiguous()
         for name in ("rproj", "countsketch"):
@@ -1236,7 +1287,7 @@ def main() -> int:
     times["flash_attention"] = time_flash()
     launches = run_main_path()
     sketch_routes, w = run_sketch_path()
-    pair_launches, pair_err = run_pairwise(w)
+    pair_routes, pair_err = run_pairwise(w)
     del w
     big = framework_scale()
     profile_round()
@@ -1263,14 +1314,16 @@ def main() -> int:
     # segment-sum kernels only the launches at the row's route and D
     paths = {"center_sq_dists": ("main path", launches),
              "fused_coalition_stats": ("main path", launches),
-             "pairwise_sq_dists": ("pairwise on the sketch run's W",
-                                   pair_launches),
              "flash_attention": ("pretrain path", pretrain_launches)}
     widths = {"sq_dists_to_points": SKETCH_DIM, "segment_sum": d}
     sketch_label = f"sketch path ({' '.join(SKETCH_ARGS)})"
 
     def on_path(name, row, width, label, routes):
         return label, routes[(name, row["kernel_route"], width)]
+
+    paths["pairwise_sq_dists"] = on_path(
+        "pairwise_sq_dists", times["pairwise_sq_dists"], d,
+        "pairwise on the sketch run's W", pair_routes)
 
     # (name, shape, timed row, max abs error, (path, launches)) of each
     # line; the distance and segment-sum kernels also at full width and at
@@ -1293,6 +1346,11 @@ def main() -> int:
                        f"composed round N={n} K={k} D={BIG_D}",
                        big["routes"]))
               for name in ("sq_dists_to_points", "segment_sum")]
+    lines.append(("pairwise_sq_dists", f"N={n} D={BIG_D} f32",
+                  big["pairwise_sq_dists"], big["pairwise_sq_dists"]["err"],
+                  on_path("pairwise_sq_dists", big["pairwise_sq_dists"],
+                          BIG_D, f"pairwise N={n} D={BIG_D}",
+                          big["pairwise routes"])))
     kernels = []
     for name, shape, row, err, (path, count) in lines:
         if isinstance(count, dict):

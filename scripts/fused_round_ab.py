@@ -13,10 +13,13 @@ card:
     (f32, N = 10, K = 3 and N = 16, K = 4), with a hash of their outputs
     (two trees whose kernels sum alike print the same hashes) and the
     registers and spills of every fused-round route;
-  - ``sq_dists_to_points`` at full width (W f32 or bf16, P f32) and
-    ``segment_sum`` (W f32 or bf16) at the main path's shape and at
-    D = 8M, ``segment_sum`` also on a base two elements off a 16-byte
-    boundary (two columns a load where four would be taken);
+  - ``sq_dists_to_points`` at full width (W f32 or bf16, P f32),
+    ``pairwise_sq_dists`` and ``segment_sum`` (W f32 or bf16) at the main
+    path's shape and at D = 8M, ``pairwise_sq_dists`` and ``segment_sum``
+    also on a base two elements off a 16-byte boundary (two columns a load
+    where four would be taken), each with its route (``-`` for a tree
+    without a route function) and a hash of its outputs, and the registers
+    and spills of every route of the three;
 each timed as ``chip_smoke.py`` times it (CUDA events, L2 flushed before
 each launch, median of 50), and also with a clean L2, beside its byte
 bound.  Exits 1 without a CUDA device.
@@ -37,8 +40,8 @@ SHAPES = ((10, 3, 582_026, "float32"), (10, 3, 582_026, "bfloat16"),
           (10, 3, chip_smoke.BIG_D, "float32"),
           (16, 4, chip_smoke.BIG_D, "float32"))
 #: (N, K, D, W dtype, elements W's base lies past a 16-byte boundary) of
-#: the distance and segment-sum kernels; P is f32, as the composed round
-#: gives it
+#: the distance and segment-sum kernels (sq_dists_to_points on aligned
+#: bases only); P is f32, as the composed round gives it
 DIST_SHAPES = ((10, 3, 582_026, "float32", 0),
                (10, 3, 582_026, "bfloat16", 0),
                (10, 3, chip_smoke.BIG_D, "float32", 0),
@@ -65,8 +68,30 @@ def report(label: str, name: str, shape: str, fn, nbytes: int) -> None:
           f"({100 * bound / ms:.1f}%, clean {100 * bound / clean:.1f}%)")
 
 
-def route_of(mod, *args) -> str:
-    return mod.route(*args) if hasattr(mod, "route") else "-"
+def route_of(mod, fn: str, *args) -> str:
+    return getattr(mod, fn)(*args) if hasattr(mod, fn) else "-"
+
+
+def print_registers(label: str, pd, sm) -> None:
+    """Registers and spills of every route of the distance and segment-sum
+    kernels (the pairwise ones where the tree has them)."""
+    import torch
+
+    dts = (torch.float32, torch.bfloat16)
+    rows = [(f"sq_dists_to_points {name} W {str(a)[6:]} P {str(b)[6:]}",
+             lambda n=name, a=a, b=b: pd.kernel_attributes(a, b, n))
+            for name in pd.ROUTES for a in dts for b in dts]
+    if hasattr(pd, "pairwise_kernel_attributes"):
+        rows += [(f"pairwise_sq_dists {name} {str(a)[6:]}",
+                  lambda n=name, a=a: pd.pairwise_kernel_attributes(a, n))
+                 for name in pd.PAIRWISE_ROUTES for a in dts]
+    rows += [(f"segment_sum {name} {str(a)[6:]}",
+              lambda n=name, a=a: sm.kernel_attributes(a, n))
+             for name in sm.ROUTES for a in dts]
+    for name, attributes in rows:
+        a = attributes()
+        print(f"ab {label} {name}: {a['regs']} registers, "
+              f"{a['local_bytes']} bytes of local memory")
 
 
 def main(argv: list[str]) -> int:
@@ -92,6 +117,7 @@ def main(argv: list[str]) -> int:
                 print(f"ab {label} fused_round {name} {str(dt)[6:]} pass "
                       f"{2 if stats else 1}: {a['regs']} registers, "
                       f"{a['local_bytes']} bytes of local memory")
+    print_registers(label, pd, sm)
     for n, k, d, dname in SHAPES:
         w, conehot, m = chip_smoke.inputs(n, k, d, getattr(torch, dname))
         wb = w.numel() * w.element_size()
@@ -119,14 +145,19 @@ def main(argv: list[str]) -> int:
         wb = w.numel() * w.element_size()
         shape = f"N={n} K={k} D={d} W {dname} (base +{lead})"
         if lead == 0:
-            r = route_of(pd, n, k, d, w.dtype, w.data_ptr(), p.dtype,
-                         p.data_ptr())
+            r = route_of(pd, "route", n, k, d, w.dtype, w.data_ptr(),
+                         p.dtype, p.data_ptr())
             print(f"ab {label} sq_dists_to_points {shape} route {r} outputs "
                   f"{digest(pd.sq_dists_to_points(w, p))}")
             report(label, "sq_dists_to_points", shape,
                    lambda: pd.sq_dists_to_points(w, p),
                    wb + 4 * (k * d + n * k))
-        r = route_of(sm, n, k, d, w.dtype, w.data_ptr())
+        r = route_of(pd, "pairwise_route", n, d, w.dtype, w.data_ptr())
+        print(f"ab {label} pairwise_sq_dists {shape} route {r} outputs "
+              f"{digest(pd.pairwise_sq_dists(w))}")
+        report(label, "pairwise_sq_dists", shape,
+               lambda: pd.pairwise_sq_dists(w), wb + 4 * n * n)
+        r = route_of(sm, "route", n, k, d, w.dtype, w.data_ptr())
         print(f"ab {label} segment_sum {shape} route {r} outputs "
               f"{digest(sm.segment_sum(m, w))}")
         report(label, "segment_sum", shape, lambda: sm.segment_sum(m, w),

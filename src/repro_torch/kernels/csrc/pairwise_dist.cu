@@ -7,12 +7,13 @@
 // W and P may each be float32 or bfloat16; both are cast to f32 on load and
 // every sum is taken in f32.
 //
-// Bound.  Each element of W costs about 3K (or 3N/2) floating-point operations
-// per 4 bytes read, far below the fp32 ridge: both kernels are bound by
-// device-memory bytes, N*D*sizeof(W) (+ K*D*sizeof(P)) read once.  At the
-// sketch widths (D = S = 64..2048) the whole input is a few KB (13 KB at
-// N = 10, K = 3, S = 256 f32: 0.004 us at 3.35 TB/s) and a call is bound by
-// its launch.
+// Bound.  Each element of W costs about 3K (or 3(N-1)/2) floating-point
+// operations per 4 bytes read, far below the fp32 ridge: both kernels are
+// bound by device-memory bytes, N*D*sizeof(W) (+ K*D*sizeof(P)) read once
+// (pairwise at N = 10: 23.3 MB, 6.95 us at 3.35 TB/s, at D = 582,026 f32;
+// 320 MB, 95.5 us, at D = 8M).  At the sketch widths (D = S = 64..2048) the
+// whole input is a few KB (13 KB at N = 10, K = 3, S = 256 f32: 0.004 us at
+// 3.35 TB/s) and a call is bound by its launch.
 //
 // Design, full width, sq_dists_to_points on a register tier (reg_dists,
 // N <= kRegN, K <= kRegK; D > kSmallD).  The register sweep of
@@ -34,14 +35,48 @@
 // 2-element aligned, else 1 (rows of D = 582,026 f32 are 8-byte aligned).
 // W and P each template on their dtype: 4 mixes.
 //
-// Why the first full-width design (tile_dists) reached 23% of the bound: each
-// CTA staged a 256-column tile of all N + K rows in shared memory and read it
-// back once per (pair, column), with two barriers a tile and a second launch
-// for the partials (the faults fused_round.cu's source note gives for its
-// own first design).
+// Design, full width, pairwise_sq_dists on the register tier (reg_pairwise,
+// N <= kPairRegN, D > kSmallD).  reg_dists with P = W and only the pairs
+// a < b: each thread takes V adjacent columns of all N rows a step
+// (streaming loads, every element of W read once) and sums (w_a - w_b)^2 in
+// N(N-1)/2 f32 registers (45 at N = 10; the diff form, not the Gram form of
+// the Pallas body, which loses ~1e-7 of |w|^2 to cancellation).  Pair
+// q = b (b - 1) / 2 + a, so the pairs of the first N rows come first: a
+// tier compiled for the cap runs a smaller N with no arithmetic for the
+// rows past it (one branch on b < N a row, the same in every thread), and
+// its tail sums and writes only the N(N-1)/2 pairs of N.  The sums sit in
+// rows of kPairRegN / 2 pairs, and the tail branches once a row: a branch a
+// pair serialised the pairs' shuffle trees and cost ~5 us at N = 10.  One
+// launch: each CTA writes a row of partials, the last CTA (integer ticket)
+// sums the rows in a fixed order, clamps at 0 and writes both halves of the
+// matrix from one value (symmetric bit for bit); CTA 0 writes the zero
+// diagonal.  No float atomics; the grid depends only on the shape and the
+// card, so repeats are bit-identical.  V = 4 where D % 4 == 0 and the base
+// is 4-element aligned (16 bytes in f32, as at D = 8M), else 2 where D is
+// even and the base 2-element aligned (D = 582,026), else 1.  One tier, PairTier, for every
+// N <= kPairRegN, 384 threads (168 registers a thread).  The cap is the
+// largest N at which ptxas spills at no V in f32 or bf16
+// (scripts/pairwise_cap_probe.py on the H100, CUDA 12.9): N = 13 takes 168
+// registers at every V with no local memory; N = 14 spills 8 bytes at V = 4
+// in f32, N = 16 40 and 192 bytes at V = 2 and 4 (f32); N = 12 takes
+// 148-160.  512 threads (128 a thread) spill at N = 12 (V = 4, f32).  256
+// threads (255 a thread) hold N = 16 at 255 registers, but keep fewer loads
+// in flight: N = 10 at D = 582,026 takes 25.3 us there (24.9 clean)
+// against 24.3 (22.7) at 384.  A tier compiled for exactly N = 10 was
+// 5.5-7.2% faster at D = 582,026 (22.9 against 24.3 us; 23.5 against 25.2
+// in another call) and 1.7-1.8% at D = 8M; it is not kept, since no round
+// path launches this kernel.
 //
-// Design, tile_dists: pairwise_sq_dists at every D, and sq_dists_to_points
-// above the register tiers' caps (N > kRegN or K > kRegK, D > kSmallD).
+// Why the first full-width design (tile_dists) reached 22-23% of the bound:
+// each CTA staged a 256-column tile of all N (+ K) rows in shared memory and
+// read it back once per (pair, column), with two barriers a tile and a
+// second launch for the partials (the faults fused_round.cu's source note
+// gives for its own first design).
+//
+// Design, tile_dists: pairwise_sq_dists above the pairwise cap
+// (kPairRegN < N <= kMaxPairwiseN) and at D <= kSmallD, and
+// sq_dists_to_points above the register tiers' caps (N > kRegN or
+// K > kRegK, D > kSmallD).
 // Every CTA takes a strided set of kTile-column tiles:
 //   1. stage the tile of W (and of P) in shared memory as f32, zero past the
 //      ragged edge of D (zero columns add nothing to any sum);
@@ -71,6 +106,10 @@
 // refuse a route the shape does not fit): warp_dists at D <= kSmallD;
 // reg_dists<ExactTier> at (kExactN, kExactK), reg_dists<RegsTier> at other
 // N <= kRegN, K <= kRegK, each with V = 2 or 1; tile_dists above the caps.
+// Routes of pairwise_sq_dists (the wrapper's pairwise_route(); the entry
+// points refuse a route the shape or the base does not fit):
+// reg_pairwise<PairTier> at N <= kPairRegN, D > kSmallD, with V = 4, 2 or
+// 1; tile_dists above the cap and at D <= kSmallD.
 //
 // Limits (the entry points return cudaErrorInvalidValue beyond them):
 //   sq_dists_to_points  1 <= N <= kMaxN, 1 <= K <= kMaxK, N*K <= kMaxPairs;
@@ -96,6 +135,8 @@ constexpr int kRegN = 16;                 // N and K caps of the register route
 constexpr int kRegK = 4;
 constexpr int kExactN = 10;               // the shape with a kernel of its own
 constexpr int kExactK = 3;
+constexpr int kPairRegN = 13;             // N cap of the pairwise register route
+constexpr int kPairThreads = 384;         // threads of its CTA
 
 // Routes of sq_dists_to_points (the entry points' `route`): the tile kernel,
 // a register tier loading 1 or 2 columns of a row at a time, or the warp
@@ -106,9 +147,15 @@ constexpr int kRouteRegs2 = 2;
 constexpr int kRouteExact1 = 3;
 constexpr int kRouteExact2 = 4;
 constexpr int kRouteWarp = 5;
+// Routes of pairwise_sq_dists: the tile kernel (kRouteTile), or the register
+// tier loading 1, 2 or 4 columns of a row at a time.
+constexpr int kRoutePregs1 = 6;
+constexpr int kRoutePregs2 = 7;
+constexpr int kRoutePregs4 = 8;
 
 using RegsTier = Tier<kRegN, kRegK, false, 1, false, 384>;
 using ExactTier = Tier<kExactN, kExactK, true, 2, true, 512>;
+using PairTier = Tier<kPairRegN, 1, false, 1, false, kPairThreads>;
 
 __host__ __device__ inline int num_pairs(bool pairwise, int n, int k) {
   return pairwise ? n * (n - 1) / 2 : n * k;
@@ -370,6 +417,76 @@ __global__ void __launch_bounds__(TIER::threads, 1)
   grid_tail<kT>(acc, red, partials, ticket, out, n, k);
 }
 
+// pairwise_sq_dists at full width on a register tier: each thread sums
+// (w[a] - w[b])^2 over its columns for every pair a < b below the cap in
+// registers, pair q = b (b - 1) / 2 + a at acc[q / G][q % G] (rows of G
+// pairs), so that the n (n - 1) / 2 pairs of the first n rows come first:
+// the arithmetic of the pairs past them is skipped (a branch on b < n, the
+// same in every thread), and grid_tail sums and writes only the rows that
+// hold them.  The last CTA writes each pair's sum, clamped at 0, to both
+// halves of out; CTA 0 writes the zero diagonal.  V: columns a load takes (d % V == 0,
+// the base V-element aligned).  partials (gridDim.x, the tier's pairs)
+// scratch; ticket a zeroed counter; out (n, n).
+template <typename T, class TIER, int V>
+__global__ void __launch_bounds__(TIER::threads, 1)
+    reg_pairwise(const T* __restrict__ w, float* __restrict__ partials,
+                 unsigned* __restrict__ ticket, float* __restrict__ out,
+                 int n_in, long long d) {
+  constexpr int NC = TIER::n;
+  constexpr int NP = NC * (NC - 1) / 2;
+  constexpr int G = NC / 2;                  // pairs a row of acc
+  constexpr int R = NP / G;                  // NC - 1 or NC rows
+  static_assert(NC >= 2 && R * G == NP, "rows of G pairs hold every pair");
+  constexpr int U = TIER::groups(V);
+  constexpr int kT = TIER::threads;
+  const int n = TIER::exact ? NC : n_in;
+  __shared__ float red[TIER::warps * NP];
+  if (blockIdx.x == 0 && threadIdx.x < n) out[threadIdx.x * (n + 1)] = 0.f;
+
+  float acc[R][G];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) acc[q / G][q % G] = 0.f;
+  const long long groups = d / V;
+  struct Step {
+    float x[U][NC][V];
+  };
+  // groups past the end load zeros: they add nothing
+  sweep<TIER, V, Step>(
+      groups,
+      [&](Step& s, long long g0) {
+        load_step<kT>(s.x, w, g0, groups, n, d);
+      },
+      [&](const Step& s, long long) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int b = 1; b < NC; ++b) {
+            if (TIER::exact || b < n) {
+#pragma unroll
+              for (int a = 0; a < b; ++a) {
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  const float diff = s.x[u][a][v] - s.x[u][b][v];
+                  float& r = acc[(b * (b - 1) / 2 + a) / G]
+                                [(b * (b - 1) / 2 + a) % G];
+                  r = fmaf(diff, diff, r);
+                }
+              }
+            }
+          }
+        }
+      });
+  grid_tail<kT>(acc, red, partials, ticket, n * (n - 1) / 2,
+                [&](int q, float sum) {
+                  int b = 1;
+                  while (q >= b * (b + 1) / 2) ++b;
+                  const int a = q - b * (b - 1) / 2;
+                  const float v = fmaxf(sum, 0.f);
+                  out[a * n + b] = v;
+                  out[b * n + a] = v;
+                });
+}
+
 // ---------------------------------------------------------------- dispatch
 
 // Everything a sq_dists_to_points launch needs; ticket is used by the
@@ -485,26 +602,66 @@ cudaError_t tile_launch(const void* w, const void* p, float* partials,
   return cudaGetLastError();
 }
 
-template <typename TW, typename TP>
+template <typename TW, typename TP, bool PAIRWISE>
 cudaError_t tile_op(Op op, const Dists& a, int* grid,
                     cudaFuncAttributes* attr) {
   switch (op) {
     case Op::kAttributes:
-      return cudaFuncGetAttributes(attr, tile_dists<TW, TP, false>);
+      return cudaFuncGetAttributes(attr, tile_dists<TW, TP, PAIRWISE>);
     case Op::kGrid:
-      return tile_grid<TW, TP, false>(a.n, a.d, a.k, a.device, grid);
+      return tile_grid<TW, TP, PAIRWISE>(a.n, a.d, a.k, a.device, grid);
     case Op::kLaunch:
-      return tile_launch<TW, TP, false>(a.w, a.p, a.partials, a.out, a.n, a.d,
-                                        a.k, a.grid, a.stream);
+      return tile_launch<TW, TP, PAIRWISE>(a.w, a.p, a.partials, a.out, a.n,
+                                           a.d, a.k, a.grid, a.stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// pairwise_sq_dists on the register tier, loading V columns a time.
+template <typename T, int V>
+cudaError_t pair_op(Op op, const Dists& a, int* grid,
+                    cudaFuncAttributes* attr) {
+  const auto kernel = reg_pairwise<T, PairTier, V>;
+  switch (op) {
+    case Op::kAttributes:
+      return cudaFuncGetAttributes(attr, kernel);
+    case Op::kGrid:
+      return sweep_grid<PairTier, V>(kernel, a.device, a.d, grid);
+    case Op::kLaunch:
+      if (!tier_fits<PairTier>(a.n, 1) ||
+          !cols_aligned(V, sizeof(T), a.w, a.d) || a.ticket == nullptr ||
+          a.grid > PairTier::threads) {
+        return cudaErrorInvalidValue;
+      }
+      kernel<<<a.grid, PairTier::threads, 0, a.stream>>>(
+          static_cast<const T*>(a.w), a.partials, a.ticket, a.out, a.n, a.d);
+      return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool pair_route(int route) {
+  return route == kRoutePregs1 || route == kRoutePregs2 ||
+         route == kRoutePregs4;
+}
+
+template <typename T>
+cudaError_t pair_by_route(int route, Op op, const Dists& a, int* grid,
+                          cudaFuncAttributes* attr) {
+  switch (route) {
+    case kRouteTile: return tile_op<T, T, true>(op, a, grid, attr);
+    case kRoutePregs1: return pair_op<T, 1>(op, a, grid, attr);
+    case kRoutePregs2: return pair_op<T, 2>(op, a, grid, attr);
+    case kRoutePregs4: return pair_op<T, 4>(op, a, grid, attr);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename TW, typename TP>
 cudaError_t by_route(int route, Op op, const Dists& a, int* grid,
                      cudaFuncAttributes* attr) {
   switch (route) {
-    case kRouteTile: return tile_op<TW, TP>(op, a, grid, attr);
+    case kRouteTile: return tile_op<TW, TP, false>(op, a, grid, attr);
     case kRouteRegs1: return reg_op<TW, TP, RegsTier, 1>(op, a, grid, attr);
     case kRouteRegs2: return reg_op<TW, TP, RegsTier, 2>(op, a, grid, attr);
     case kRouteExact1: return reg_op<TW, TP, ExactTier, 1>(op, a, grid, attr);
@@ -516,10 +673,16 @@ cudaError_t by_route(int route, Op op, const Dists& a, int* grid,
 
 using bf16 = __nv_bfloat16;
 
-cudaError_t run(int w_bf16, int p_bf16, int route, Op op, const Dists& a,
-                int* grid = nullptr, cudaFuncAttributes* attr = nullptr) {
+// pairwise = 1 for pairwise_sq_dists (P is W; p_bf16 ignored).
+cudaError_t run(int pairwise, int w_bf16, int p_bf16, int route, Op op,
+                const Dists& a, int* grid = nullptr,
+                cudaFuncAttributes* attr = nullptr) {
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return err;
+  if (pairwise) {
+    return w_bf16 ? pair_by_route<bf16>(route, op, a, grid, attr)
+                  : pair_by_route<float>(route, op, a, grid, attr);
+  }
   if (w_bf16) {
     return p_bf16 ? by_route<bf16, bf16>(route, op, a, grid, attr)
                   : by_route<bf16, float>(route, op, a, grid, attr);
@@ -534,11 +697,11 @@ extern "C" {
 
 // The shape limits (sq_dists_to_points takes N <= max_n, K <= max_k,
 // N*K <= max_pairs; pairwise_sq_dists takes N <= max_pairwise_n), the
-// largest D of the warp route, the register tiers' N and K caps, and the
-// (N, K) of the exact tier.
+// largest D of the warp route, the register tiers' N and K caps, the
+// (N, K) of the exact tier, and the N cap of the pairwise register tier.
 void pd_limits(int* max_n, int* max_k, int* max_pairs, int* max_pairwise_n,
                int* small_d, int* reg_n, int* reg_k, int* exact_n,
-               int* exact_k) {
+               int* exact_k, int* pair_reg_n) {
   *max_n = kMaxN;
   *max_k = kMaxK;
   *max_pairs = kMaxPairs;
@@ -548,37 +711,32 @@ void pd_limits(int* max_n, int* max_k, int* max_pairs, int* max_pairwise_n,
   *reg_k = kRegK;
   *exact_n = kExactN;
   *exact_k = kExactK;
+  *pair_reg_n = kPairRegN;
 }
 
 // Number of CTAs a launch uses for this shape and route, and the floats of
 // scratch (`partials`) it needs: (npairs, grid) on the tile route when grid
 // > 1 (1 means the kernel writes the output itself), a row of the tier's
 // caps a CTA on a register route, none on the warp route.  pairwise = 1 for
-// pairwise_sq_dists (k ignored; route must be the tile route); w_bf16 /
-// p_bf16 = 1 when W / P is bfloat16.
+// pairwise_sq_dists (k ignored; route the tile route or a pairwise register
+// route); w_bf16 / p_bf16 = 1 when W / P is bfloat16.
 int pd_grid(int pairwise, int w_bf16, int p_bf16, int route, int n,
             long long d, int k, int device, int* grid, long long* scratch) {
   if (!shape_ok(pairwise, n, d, k)) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (pairwise) {
-    if (route != kRouteTile) return cudaErrorInvalidValue;
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    err = w_bf16 ? tile_grid<bf16, bf16, true>(n, d, k, device, grid)
-                 : tile_grid<float, float, true>(n, d, k, device, grid);
-  } else {
-    Dists a{};
-    a.n = n;
-    a.d = d;
-    a.k = k;
-    a.device = device;
-    err = run(w_bf16, p_bf16, route, Op::kGrid, a, grid);
-  }
+  Dists a{};
+  a.n = n;
+  a.d = d;
+  a.k = k;
+  a.device = device;
+  const cudaError_t err = run(pairwise, w_bf16, p_bf16, route, Op::kGrid, a,
+                              grid);
   if (err != cudaSuccess) return err;
   const bool exact = route == kRouteExact1 || route == kRouteExact2;
   const bool regs = exact || route == kRouteRegs1 || route == kRouteRegs2;
   long long rows = 0;
-  if (regs) {
+  if (pair_route(route)) {
+    rows = kPairRegN * (kPairRegN - 1) / 2;
+  } else if (regs) {
     rows = exact ? kExactN * kExactK : kRegN * kRegK;
   } else if (route == kRouteTile && *grid > 1) {
     rows = num_pairs(pairwise, n, k);
@@ -587,15 +745,15 @@ int pd_grid(int pairwise, int w_bf16, int p_bf16, int route, int n,
   return cudaSuccess;
 }
 
-// The compiled sq_dists_to_points kernel of (W dtype, P dtype, route):
-// registers a thread and local memory a thread (bytes: spills).
-int pd_kernel_attributes(int w_bf16, int p_bf16, int route, int device,
-                         int* regs, int* local_bytes) {
+// The compiled kernel of (pairwise?, W dtype, P dtype, route): registers a
+// thread and local memory a thread (bytes: spills).
+int pd_kernel_attributes(int pairwise, int w_bf16, int p_bf16, int route,
+                         int device, int* regs, int* local_bytes) {
   Dists a{};
   a.device = device;
   cudaFuncAttributes attr{};
-  const cudaError_t err = run(w_bf16, p_bf16, route, Op::kAttributes, a,
-                              nullptr, &attr);
+  const cudaError_t err = run(pairwise, w_bf16, p_bf16, route,
+                              Op::kAttributes, a, nullptr, &attr);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -612,24 +770,19 @@ int pd_sq_dists_to_points(const void* w, int w_bf16, const void* p,
   if (!shape_ok(false, n, d, k) || grid < 1) return cudaErrorInvalidValue;
   const Dists a{w, p, partials, static_cast<unsigned*>(ticket), out, n, d, k,
                 grid, device, static_cast<cudaStream_t>(stream)};
-  return run(w_bf16, p_bf16, route, Op::kLaunch, a);
+  return run(0, w_bf16, p_bf16, route, Op::kLaunch, a);
 }
 
-// w (n, d) row-major f32 or bf16; partials (n(n-1)/2, grid) f32 scratch;
-// out (n, n) f32.
-int pd_pairwise_sq_dists(const void* w, int bf16_in, float* partials,
-                         float* out, int n, long long d, int grid, int device,
-                         void* stream) {
+// w (n, d) row-major f32 or bf16; route the tile route or a pairwise
+// register route; partials f32 scratch of the length pd_grid gives; ticket
+// one zeroed 32-bit counter (register routes); out (n, n) f32.
+int pd_pairwise_sq_dists(const void* w, int bf16_in, int route,
+                         float* partials, void* ticket, float* out, int n,
+                         long long d, int grid, int device, void* stream) {
   if (!shape_ok(true, n, d, 0) || grid < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_in) {
-    return tile_launch<bf16, bf16, true>(w, w, partials, out, n, d, 0, grid,
-                                         s);
-  }
-  return tile_launch<float, float, true>(w, w, partials, out, n, d, 0, grid,
-                                         s);
+  const Dists a{w, w, partials, static_cast<unsigned*>(ticket), out, n, d, 0,
+                grid, device, static_cast<cudaStream_t>(stream)};
+  return run(1, bf16_in, bf16_in, route, Op::kLaunch, a);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // The register sweep of the fused round's kernels (fused_round.cu,
-// reg_sq_dists), the full-width distance kernel (pairwise_dist.cu,
-// reg_dists) and the segment sum (segment_mean.cu, reg_segment_sum), which
-// share it.  Each source is a library of its own and compiles its own copy
-// of what is here.
+// reg_sq_dists), the full-width distance kernels (pairwise_dist.cu,
+// reg_dists and reg_pairwise) and the segment sum (segment_mean.cu,
+// reg_segment_sum), which share it.  Each source is a library of its own
+// and compiles its own copy of what is here.
 //
 // A sweep streams the (N, D) client matrix W (and, for the distances, the
 // (K, D) points P) from device memory straight into registers, each element
@@ -12,9 +12,11 @@
 // pipelined tier the next step's loads are issued before this step's
 // arithmetic.  Sums over D that every CTA holds a part of end in one launch:
 // each CTA writes a row of partials, and the last CTA, found by an integer
-// ticket, sums the rows in a fixed order (grid_tail).  The source notes of
-// fused_round.cu, pairwise_dist.cu and segment_mean.cu say what each kernel
-// builds in the sweep and why.
+// ticket, sums the rows in a fixed order and writes the output (grid_tail,
+// which takes the final write as a function: the (n, k) block, or the
+// pairwise kernel's two triangles).  The source notes of fused_round.cu,
+// pairwise_dist.cu and segment_mean.cu say what each kernel builds in the
+// sweep and why.
 #pragma once
 
 #include <cstdint>
@@ -193,64 +195,66 @@ __device__ __forceinline__ void sweep(long long groups, Load&& load,
 }
 
 // Sums acc over the CTA's threads in a fixed order (a __shfl_xor tree in each
-// warp, then the warps in index order).  FINAL: writes the sum of pair (i, j),
-// clamped at 0, to dst[i * k + j] for i < n, j < k.  Else writes every pair
-// below the caps to dst[i * KC + j] (a row of partials: compile-time offsets,
-// so the last CTA reads a row from one pointer).  red holds THREADS / 32 * NC
-// * KC floats.  No branch stands between acc and a register.  Ends with
-// every thread at a barrier.
-template <bool FINAL, int THREADS, int NC, int KC>
+// warp, then the warps in index order) and calls put(q, s) with the sum s of
+// pair q = i * KC + j, for every pair q < active, from thread q % THREADS.
+// A row i of acc whose first pair is at or past active is skipped: one
+// branch a row, so the KC shuffle trees of a row stay independent and
+// interleave (a branch a pair would serialise them).  active = NC * KC in
+// the kernels that sum every pair below the caps, and the branch folds
+// away.  red holds THREADS / 32 * NC * KC floats.  acc is indexed by
+// compile-time constants only, so it stays in registers.  Ends with every
+// thread at a barrier.
+template <int THREADS, int NC, int KC, class Put>
 __device__ __forceinline__ void cta_sum(const float (&acc)[NC][KC],
-                                        float* red, float* dst, int n, int k) {
+                                        float* red, int active, Put&& put) {
   constexpr int kPairs = NC * KC;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
+    if (i * KC < active) {
 #pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      float v = acc[i][j];
+      for (int j = 0; j < KC; ++j) {
+        float v = acc[i][j];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
+        for (int off = 16; off > 0; off >>= 1) {
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        }
+        if (lane == 0) red[warp * kPairs + i * KC + j] = v;
       }
-      if (lane == 0) red[warp * kPairs + i * KC + j] = v;
     }
   }
   __syncthreads();
-  for (int q = threadIdx.x; q < kPairs; q += THREADS) {
-    const int i = q / KC;
-    const int j = q % KC;
+  for (int q = threadIdx.x; q < active; q += THREADS) {
     float s = 0.f;
 #pragma unroll
     for (int wp = 0; wp < THREADS / 32; ++wp) s += red[wp * kPairs + q];
-    if (!FINAL) {
-      dst[q] = s;
-    } else if (i < n && j < k) {
-      dst[i * k + j] = fmaxf(s, 0.f);
-    }
+    put(q, s);
   }
   __syncthreads();
 }
 
 // The end of a sweep whose (NC, KC) sums every CTA holds a part of: the CTA's
-// row of partials, then the ticket (the pattern of a grid-wide barrier: the
-// CTA's barrier, then one thread's fence and atomic); the last CTA sums the
-// rows of all CTAs, one row a thread (the launch keeps gridDim.x <= THREADS:
-// all loads in one round), in the same fixed tree, clamps at 0, writes out
-// (n, k) and sets the ticket back to 0 for the next launch on the stream.
-// Which CTA is last changes nothing in the order of the sums.
-template <int THREADS, int NC, int KC>
+// row of partials (pair q at offset q of a row of NC * KC, compile-time
+// offsets, so the last CTA reads a row from one pointer), then the ticket
+// (the pattern of a grid-wide barrier: the CTA's barrier, then one thread's
+// fence and atomic); the last CTA sums the rows of all CTAs, one row a
+// thread (the launch keeps gridDim.x <= THREADS: all loads in one round), in
+// the same fixed tree, hands each pair's sum to write(q, s) (as cta_sum's
+// put) and sets the ticket back to 0 for the next launch on the stream.
+// Only the rows of acc that hold a pair q < active are summed, and only
+// those pairs written (as in cta_sum).  Which CTA is last changes nothing
+// in the order of the sums.
+template <int THREADS, int NC, int KC, class Write>
 __device__ __forceinline__ void grid_tail(float (&acc)[NC][KC], float* red,
                                           float* __restrict__ partials,
                                           unsigned* __restrict__ ticket,
-                                          float* __restrict__ out, int n,
-                                          int k) {
+                                          int active, Write&& write) {
   __shared__ bool last;
   constexpr int kPairs = NC * KC;
   const int tid = threadIdx.x;
-  cta_sum<false, THREADS>(
-      acc, red, partials + static_cast<long long>(kPairs) * blockIdx.x, n, k);
+  float* row = partials + static_cast<long long>(kPairs) * blockIdx.x;
+  cta_sum<THREADS>(acc, red, active, [&](int q, float s) { row[q] = s; });
   if (tid == 0) {
     __threadfence();
     last = atomicAdd(ticket, 1u) == gridDim.x - 1;
@@ -264,15 +268,32 @@ __device__ __forceinline__ void grid_tail(float (&acc)[NC][KC], float* red,
     for (int j = 0; j < KC; ++j) acc[i][j] = 0.f;
   }
   for (int c = tid; c < static_cast<int>(gridDim.x); c += THREADS) {
-    const float* row = partials + static_cast<long long>(kPairs) * c;
+    const float* rc = partials + static_cast<long long>(kPairs) * c;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
+      if (i * KC < active) {
 #pragma unroll
-      for (int j = 0; j < KC; ++j) acc[i][j] += __ldcg(row + i * KC + j);
+        for (int j = 0; j < KC; ++j) acc[i][j] += __ldcg(rc + i * KC + j);
+      }
     }
   }
-  cta_sum<true, THREADS>(acc, red, out, n, k);
+  cta_sum<THREADS>(acc, red, active, write);
   if (tid == 0) *ticket = 0u;
+}
+
+// grid_tail writing the (n, k) output: the sum of pair (i, j), clamped at 0,
+// to out[i * k + j] for i < n, j < k.
+template <int THREADS, int NC, int KC>
+__device__ __forceinline__ void grid_tail(float (&acc)[NC][KC], float* red,
+                                          float* __restrict__ partials,
+                                          unsigned* __restrict__ ticket,
+                                          float* __restrict__ out, int n,
+                                          int k) {
+  grid_tail<THREADS>(acc, red, partials, ticket, NC * KC, [&](int q, float s) {
+    const int i = q / KC;
+    const int j = q % KC;
+    if (i < n && j < k) out[i * k + j] = fmaxf(s, 0.f);
+  });
 }
 
 // Whether a tier takes (n, k): exactly its caps, or at most them.

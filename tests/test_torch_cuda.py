@@ -536,3 +536,57 @@ def test_cuda_segment_sum_kernels_do_not_spill(name, dtype):
         pytest.skip("needs a CUDA card")
     attrs = tsm.kernel_attributes(getattr(torch, dtype), name)
     assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
+
+
+#: pairwise_sq_dists on its register routes and around them: (N, D, dtype,
+#: elements W's base lies past a 16-byte boundary, route)
+PAIR_CAP = tpd.PAIR_REG_N
+PAIRWISE_CASES = [(10, 582_026, "float32", 0, "pregs2"),
+                  (10, 582_026, "bfloat16", 0, "pregs2"),
+                  (10, 8_000_000, "float32", 0, "pregs4"),
+                  (PAIR_CAP, 100_000, "float32", 0, "pregs4"),
+                  (PAIR_CAP, 100_001, "bfloat16", 0, "pregs1"),
+                  (PAIR_CAP + 1, 100_000, "float32", 0, "tile"),
+                  (1, 4096, "float32", 0, "pregs4"),
+                  (2, 4098, "bfloat16", 0, "pregs2"),
+                  (10, 4096, "float32", 1, "pregs1"),
+                  (10, 4096, "float32", 2, "pregs2"),
+                  (10, 4096, "bfloat16", 1, "pregs1"),
+                  (10, 4096, "bfloat16", 2, "pregs2"),
+                  (10, 2048, "float32", 0, "tile")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,dtype,lead,want", PAIRWISE_CASES)
+def test_cuda_pairwise_sq_dists_routes(n, d, dtype, lead, want):
+    """Each pairwise route against the plain version at 5e-6 of the max:
+    symmetric bit for bit, the diagonal exactly 0, no value below 0, two
+    calls bit-identical, one launch a call, the tickets back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(n, 1, d, dtype)
+    if lead:
+        w = _offset_view(w, lead)
+    assert tpd.pairwise_route(n, d, w.dtype, w.data_ptr()) == want
+    outs = []
+    for _ in range(2):
+        before = tpd.LAUNCHES["pairwise_sq_dists"]
+        outs.append(tpd.pairwise_sq_dists(w))
+        assert tpd.LAUNCHES["pairwise_sq_dists"] == before + 1
+    torch.cuda.synchronize()
+    got = outs[0]
+    _close(got, tref.pairwise_sq_dists(w))
+    assert torch.equal(got, got.T) and torch.equal(got, outs[1])
+    assert torch.all(torch.diagonal(got) == 0) and torch.all(got >= 0)
+    assert all(int(t) == 0 for t in tsweep.TICKETS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(tpd.PAIRWISE_ROUTES))
+def test_cuda_pairwise_sq_dists_kernels_do_not_spill(name, dtype):
+    """No pairwise_sq_dists kernel keeps local memory (ptxas spills)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    attrs = tpd.pairwise_kernel_attributes(getattr(torch, dtype), name)
+    assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs

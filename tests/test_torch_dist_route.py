@@ -5,6 +5,10 @@ to the warp kernel at the sketch widths (D <= SMALL_D), to a register
 kernel at full width for N <= REG_N, K <= REG_K (its own for the exact
 (N, K) = (10, 3)), with 2-column loads where D and both bases allow them
 and 1-column loads elsewhere, and to the tile kernel above the caps.
+``repro_torch.kernels.pairwise_dist.pairwise_route`` sends
+``pairwise_sq_dists`` to the pairwise register kernel at full width for
+N <= PAIR_REG_N, with 4-, 2- or 1-column loads by D and W's base, and to
+the tile kernel above the cap and at D <= SMALL_D.
 ``repro_torch.kernels.segment_mean.route`` sends ``segment_sum`` to a
 register kernel with 4-, 2- or 1-column loads by D and W's base, and to
 the column kernel above the caps.  Both raise outside the kernels' limits
@@ -16,12 +20,14 @@ register routes' shapes.
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import pairwise_dist as jpd
+from repro.kernels import ref as jref
 from repro.kernels import segment_mean as jsm
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as tpd
@@ -69,6 +75,42 @@ def test_sq_dists_to_points_route_by_shape(n, k, d, wdt, wp, pdt, pp, want):
 def test_sq_dists_to_points_route_refuses_shapes_outside_the_limits(n, k, d):
     with pytest.raises(ValueError, match="limits"):
         tpd.route(n, k, d, F32, BASE, F32, BASE)
+
+
+CAP = tpd.PAIR_REG_N
+
+
+@pytest.mark.parametrize("n,d,dtype,ptr,want", [
+    (10, 582_026, F32, BASE, "pregs2"),       # the main width: 8-byte rows
+    (10, 582_026, BF16, BASE, "pregs2"),
+    (10, 8_000_000, F32, BASE, "pregs4"),     # framework scale
+    (10, 8_000_000, F32, BASE + 8, "pregs2"),
+    (10, 8_000_000, F32, BASE + 4, "pregs1"),
+    (10, 8_000_000, BF16, BASE + 8, "pregs4"),
+    (10, 8_000_000, BF16, BASE + 4, "pregs2"),
+    (10, 8_000_000, BF16, BASE + 2, "pregs1"),
+    (10, 1_000_003, F32, BASE, "pregs1"),     # odd D
+    (10, 2049, F32, BASE, "pregs1"),          # past the sketch widths
+    (2, 4098, F32, BASE, "pregs2"),
+    (1, 4096, F32, BASE, "pregs4"),
+    (CAP, 4096, BF16, BASE, "pregs4"),        # the register cap
+    (CAP, 70_001, F32, BASE, "pregs1"),
+    (CAP + 1, 4096, F32, BASE, "tile"),       # above the cap
+    (16, 582_026, F32, BASE, "tile"),
+    (64, 1_000_003, F32, BASE, "tile"),       # the limit
+    (10, 2048, F32, BASE, "tile"),            # the sketch widths
+    (10, 256, BF16, BASE, "tile"),
+    (1, 1, F32, BASE, "tile"),
+])
+def test_pairwise_route_by_shape(n, d, dtype, ptr, want):
+    assert tpd.pairwise_route(n, d, dtype, ptr) == want
+    assert want in tpd.PAIRWISE_ROUTES
+
+
+@pytest.mark.parametrize("n,d", [(0, 100), (65, 100), (10, 0), (65, 4096)])
+def test_pairwise_route_refuses_shapes_outside_the_limits(n, d):
+    with pytest.raises(ValueError, match="limits"):
+        tpd.pairwise_route(n, d, F32, BASE)
 
 
 @pytest.mark.parametrize("n,k,d,dtype,ptr,want", [
@@ -132,10 +174,14 @@ def test_pairwise_dist_source_caps_match_the_wrapper():
     assert (_const(src, "kExactN"), _const(src, "kExactK")) == tpd.EXACT_NK
     assert "constexpr int kMaxPairs = kThreads * kMaxItems;" in src
     assert _const(src, "kThreads") * _const(src, "kMaxItems") == tpd.MAX_PAIRS
-    for name, code in tpd.ROUTES.items():
+    for name, code in (*tpd.ROUTES.items(), *tpd.PAIRWISE_ROUTES.items()):
         tier = name[:-1].title() + name[-1] if name[-1].isdigit() \
             else name.title()
         assert _const(src, f"kRoute{tier}") == code
+    assert _const(src, "kPairRegN") == tpd.PAIR_REG_N
+    assert "using PairTier = Tier<kPairRegN, 1, false, 1, false, " in src
+    codes = list(tpd.ROUTES.values()) + list(tpd.PAIRWISE_ROUTES.values())
+    assert len(set(codes)) == len(codes) - 1      # "tile" is in both
 
 
 def test_segment_mean_source_caps_match_the_wrapper():
@@ -172,6 +218,8 @@ def test_wrappers_check_before_routing():
     with pytest.raises(ValueError, match="CUDA"):
         tpd.sq_dists_to_points(w, w[:3])
     with pytest.raises(ValueError, match="CUDA"):
+        tpd.pairwise_sq_dists(w)
+    with pytest.raises(ValueError, match="CUDA"):
         tsm.segment_sum(torch.zeros((3, 10)), w)
 
 
@@ -204,3 +252,28 @@ def test_plain_segment_sum_matches_reference_with_weights(k, n, d):
                            interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [4099, 4098])     # odd; even, not a multiple of 4
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_pairwise_sq_dists_at_full_width_matches_reference(d, dtype):
+    """The CPU path at the pairwise register routes' widths (pregs1 at odd
+    D, pregs2 at even D not a multiple of 4), against the reference's
+    Pallas kernel (interpret mode) and its ref, on the same numpy W, within
+    the reference's bounds (tests/test_kernels.py: 5e-6 of the max in f32,
+    5e-3 in bf16)."""
+    rng = np.random.default_rng(d)
+    w = rng.standard_normal((10, d)).astype(np.float32)
+    jw = jnp.asarray(w).astype(getattr(jnp, dtype))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    got = ops.pairwise_sq_dists(tw).numpy()
+    tol = 5e-3 if dtype == "bfloat16" else 5e-6
+    for want in (jpd.pairwise_sq_dists(jw, block_d=4096, interpret=True),
+                 jref.pairwise_sq_dists(jw)):
+        want = np.asarray(jax.device_get(want))
+        scale = float(want.max()) + 1e-6
+        np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                                   atol=tol)
+    assert np.all(np.diagonal(got) == 0) and np.array_equal(got, got.T)
+    assert tpd.pairwise_route(10, d, tw.dtype, BASE) == (
+        "pregs1" if d % 2 else "pregs2")
