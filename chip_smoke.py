@@ -23,7 +23,11 @@ In order, it
      ``pairwise_route``) symmetric bit for bit, with its diagonal exactly 0
      and a repeat equal bit for bit.  The max error must stay within 5e-6 of
      the max for both dtypes (kernel and plain version upcast the same bf16
-     values to f32), and the launch counters must move.  ``flash_attention``
+     values to f32), and the launch counters must move.
+     ``fused_coalition_stats`` also at the main shape (f32, bf16) with an
+     aggregation matrix of fractional masses: the ``semi_async`` engine's
+     staleness weights ``(1 + tau)^-0.5``, tau in 0..4, normalised per
+     coalition as ``aggregation_matrix`` does (phase c).  ``flash_attention``
      at the reference's sweep in f32 and bf16, at the pretrain path's shape
      and at ragged, longer and wider (Dh 96, 128) shapes in bf16, within the
      reference's rtol = atol (2e-4 f32, 2e-2 bf16), and its gradient
@@ -32,7 +36,9 @@ In order, it
      backend at the main width: the fused round, the composed round and the
      sketched round (rproj and countsketch, S = 256), each with the launch
      counters set to 0 just before: equal assignments and centers, θ within
-     5e-6 of its max, and the launches of each with their routes;
+     5e-6 of its max, and the launches of each with their routes; and the
+     fused and countsketch rounds again under staleness client weights with
+     one client at weight 0, which must not be elected (phase d);
   5. times each kernel at the main path's shapes with CUDA events after a
      warm-up, with the 50 MB L2 cache flushed before every launch, beside
      its bound, its plain version and a one-call library yardstick, and the
@@ -49,6 +55,18 @@ In order, it
      before: each fused-round kernel must have launched once per server step
      (= rounds), no other kernel at all, and the final test accuracy must be
      finite and above chance (0.1);
+  6a. runs FedAvg, the paper's baseline, on the ``semi_async`` engine over
+     the ``ideal`` fleet (``train --mode fl --method fedavg --engine
+     semi_async --rounds 3``), counters set to 0 just before: no kernel
+     launches, accuracy finite and above chance, full participation,
+     ``wan_MB`` = 3 rounds x 10 clients x 2 x the CNN's 2,328,104 bytes
+     (139.686) and ``edge_MB`` 0 (phase a);
+  6b. runs Algorithm 1 on the ``semi_async`` engine over the
+     ``cellular-flaky`` fleet (``train --mode fl --engine semi_async --fleet
+     cellular-flaky --rounds 3``), counters set to 0 just before: each
+     fused-round kernel once a round and nothing else; per round WAN bytes
+     = min(K, present) x 2 x model bytes and edge bytes = present x 2 x
+     model bytes; fails if every round had full participation (phase b);
   7. runs the sketch path, ``train --mode fl --method coalition_topk
      --sketch rproj --sketch-dim 256`` at its defaults for 2 rounds, counters
      set to 0 just before: ``sq_dists_to_points`` twice and ``segment_sum``
@@ -118,6 +136,14 @@ CHECKS = ((10, 3, 582_026, "float32"), (64, 8, 1_000_003, "float32"),
 #: from the same inputs, so bf16 W is held to the f32 bound too
 TOL = 5e-6
 ROUNDS = 3
+#: the IoT-substrate paths: FedAvg on the ideal fleet (phase a) and
+#: Algorithm 1 over stragglers (phase b), each for ROUNDS rounds
+FEDAVG_ARGS = ["--mode", "fl", "--method", "fedavg", "--engine",
+               "semi_async", "--rounds", str(ROUNDS)]
+STRAGGLER_ARGS = ["--mode", "fl", "--engine", "semi_async", "--fleet",
+                  "cellular-flaky", "--rounds", str(ROUNDS)]
+#: the paper CNN's bytes in f32 (2 x this cross a link per model a round)
+MODEL_BYTES = 2_328_104
 #: server steps of the sketch path's run
 SKETCH_ROUNDS = 2
 SKETCH_ARGS = ["--mode", "fl", "--method", "coalition_topk", "--sketch",
@@ -210,6 +236,32 @@ def inputs(n: int, k: int, d: int, dtype, seed: int = 0):
     return w, conehot, m
 
 
+def stale_weights(n: int):
+    """(N,) staleness-decayed masses (1 + tau)^-0.5, tau = 0..4 in turn, on
+    the card: the semi_async engine's client weights."""
+    import torch
+
+    from repro_torch import sim
+
+    return sim.staleness_weights(torch.arange(n, device="cuda") % 5, 0.5)
+
+
+def fractional_m(n: int, k: int, seed: int = 0):
+    """(K, N) aggregation matrix of staleness-decayed masses: a seeded
+    assignment and centers, the denominators as the port's
+    ``aggregation_matrix`` takes them."""
+    import torch
+
+    from repro_torch.core import fused
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    assign = torch.randint(0, k, (n,), generator=g, device="cuda")
+    centers = torch.randperm(n, generator=g, device="cuda")[:k]
+    oh_eff, _, denom = fused.aggregation_matrix(assign, k, centers,
+                                                stale_weights(n))
+    return (oh_eff / denom[:, None]).contiguous()
+
+
 def rel_err(got, want) -> tuple[float, float]:
     """(max abs error, max abs error / max |want|)."""
     err = float((got.float() - want.float()).abs().max())
@@ -299,7 +351,48 @@ def check_kernels() -> dict:
                 errs[name] = worst_abs
         del w, got, want, b, theta, med, b_ref, theta_ref, med_ref
         torch.cuda.empty_cache()
+    check_fractional_masses()
     return errs
+
+
+def check_fractional_masses() -> None:
+    """Phase c: fused_coalition_stats at the main shape, f32 and bf16, with
+    an aggregation matrix of staleness-decayed masses (what the semi_async
+    engine gives it), against its plain version; its counter moves by 1."""
+    import torch
+
+    from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    n, k, d = MAIN
+    m = fractional_m(n, k, seed=7)
+    print(f"fractional aggregation matrix (K, N) = {tuple(m.shape)}: rows "
+          f"{[[round(x, 4) for x in row] for row in m.tolist()]}")
+    for dname in ("float32", "bfloat16"):
+        w, _, _ = inputs(n, k, d, getattr(torch, dname), seed=8)
+        route = fr.route(n, k, d, w.dtype, w.data_ptr())
+        before = fr.LAUNCHES["fused_coalition_stats"]
+        got = fr.fused_coalition_stats(w, m)
+        torch.cuda.synchronize()
+        moved = fr.LAUNCHES["fused_coalition_stats"] - before
+        pairs = [rel_err(g, r) for g, r in
+                 zip(got, ref.fused_coalition_stats(w, m))]
+        worst_abs = max(a for a, _ in pairs)
+        worst_rel = max(r for _, r in pairs)
+        print(f"check fused_coalition_stats N={n} K={k} D={d} {dname} "
+              f"fractional masses (route {route}): max abs err "
+              f"{worst_abs:.3e}, / max {worst_rel:.3e} (bound {TOL:.0e}), "
+              f"launches +{moved}")
+        if not worst_rel <= TOL:
+            fail(f"fused_coalition_stats disagrees with its plain version "
+                 f"under fractional masses at {dname}")
+        if moved != 1:
+            fail(f"fused_coalition_stats's launch counter moved by {moved}, "
+                 f"not 1")
+        del w, got
+    torch.cuda.empty_cache()
+    print(f"phase c (fractional masses): {time.perf_counter() - t0:.1f} s")
 
 
 def check_dist_kernels() -> dict:
@@ -359,7 +452,8 @@ def check_dist_kernels() -> dict:
 
 def check_rounds():
     """Phase 4: whole rounds on the cuda backend against the stream one at
-    the main width: fused, composed, and sketched (rproj, countsketch), each
+    the main width: fused, composed, and sketched (rproj, countsketch), and
+    the fused and countsketch rounds under client weights (phase d), each
     with the counters set to 0 just before.  Returns the routes of the
     composed round's launches (see :func:`path_run`)."""
     import torch
@@ -378,8 +472,17 @@ def check_rounds():
                   {"sketcher": sketch.make_sketcher(name, dim=SKETCH_DIM)},
                   {"sq_dists_to_points": 2, "segment_sum": 1})
                  for name in ("rproj", "countsketch")]
+    # phase d: the fused and countsketch rounds again under staleness
+    # weights, the last client at 0 (it must not be elected; each coalition
+    # keeps three members of positive mass)
+    weights = stale_weights(n)
+    weights[n - 1] = 0.0
+    variants += [(f"{label} weighted", {**kw, "client_weights": weights},
+                  launches) for label, kw, launches in variants
+                 if label in ("fused", f"sketched countsketch S={SKETCH_DIM}")]
     composed = None
     for label, kw, launches in variants:
+        t0 = time.perf_counter()
         def cuda_round():
             rc = coalitions.run_round(w, state, backend="cuda", **kw)
             torch.cuda.synchronize()
@@ -402,6 +505,14 @@ def check_rounds():
         if routes:
             print(f"round {label}: launches by (kernel, route, D) "
                   f"{dict(routes)}")
+        if "client_weights" in kw:
+            centers = rc.new_center_idx.tolist()
+            print(f"round {label}: weights "
+                  f"{[round(x, 4) for x in weights.tolist()]}, counts "
+                  f"{[round(x, 4) for x in rc.counts.tolist()]}, centers "
+                  f"{centers} ({time.perf_counter() - t0:.2f} s)")
+            if n - 1 in centers:
+                fail(f"the {label} round elected client {n - 1} of weight 0")
     return composed
 
 
@@ -804,6 +915,89 @@ def run_main_path() -> dict:
     expect_launches(label, launches, {"center_sq_dists": ROUNDS,
                                       "fused_coalition_stats": ROUNDS})
     return launches
+
+
+def run_fedavg_path() -> None:
+    """Phase a: FedAvg on the semi_async engine over the ideal fleet through
+    the training entry point, counters reset just before: no kernel
+    launches; full participation; the flat rule's bytes, every model over
+    the WAN both ways."""
+    import torch
+
+    from repro_torch.core import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+
+    model = zoo.make_model("cnn")
+    nbytes = pytree.tree_bytes(model.init(torch.Generator().manual_seed(0)))
+    if nbytes != MODEL_BYTES:
+        fail(f"the paper CNN has {nbytes} bytes, not {MODEL_BYTES}")
+    label = f"train {' '.join(FEDAVG_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(FEDAVG_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {})
+    args = train.build_parser().parse_args(FEDAVG_ARGS)
+    want_wan = round(ROUNDS * args.clients * 2 * MODEL_BYTES / 1e6, 3)
+    print(f"{label}: fleet {out['fleet']}, sim_time_s {out['sim_time_s']}, "
+          f"wan_MB {out['wan_MB']} (expected {want_wan}), edge_MB "
+          f"{out['edge_MB']}, mean_participation "
+          f"{out['mean_participation']}")
+    if (out["method"] != "fedavg" or out["mean_participation"] != 1.0
+            or out["wan_MB"] != want_wan or out["edge_MB"] != 0.0):
+        fail(f"{label}: the substrate summary is not FedAvg's on the ideal "
+             f"fleet")
+    print(f"phase a (FedAvg, semi_async, ideal): {wall:.1f} s")
+
+
+def run_straggler_path() -> None:
+    """Phase b: Algorithm 1 on the semi_async engine over the
+    cellular-flaky fleet through the training entry point, counters reset
+    just before: each fused-round kernel once a round and nothing else; per
+    round min(K, present) models over the WAN and every present one over
+    the edge; fails if no round was partial (the kernels then saw no
+    fractional masses)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    label = f"train {' '.join(STRAGGLER_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(STRAGGLER_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    hist = out["history"]
+    args = train.build_parser().parse_args(STRAGGLER_ARGS)
+    traffic = 2 * MODEL_BYTES
+    for r, (part, sim_t, wan, edge) in enumerate(zip(
+            hist.participation, hist.sim_times, hist.wan_bytes,
+            hist.edge_bytes)):
+        present = sum(part)
+        print(f"{label} round {r}: participation {part} ({present} of "
+              f"{len(part)}), sim_time {sim_t:.4f} s, WAN {wan:.0f} B, "
+              f"edge {edge:.0f} B, counts {hist.trace.counts[r].tolist()}")
+        if (wan != min(args.coalitions, present) * traffic
+                or edge != present * traffic):
+            fail(f"{label} round {r}: WAN {wan} / edge {edge} bytes are not "
+                 f"the hierarchical schedule's for {present} present")
+    max_wan = round(ROUNDS * args.coalitions * traffic / 1e6, 3)
+    print(f"{label}: fleet {out['fleet']}, sim_time_s {out['sim_time_s']}, "
+          f"wan_MB {out['wan_MB']} (at most {max_wan}), edge_MB "
+          f"{out['edge_MB']}, mean_participation "
+          f"{out['mean_participation']}")
+    if all(all(part) for part in hist.participation):
+        fail(f"{label}: every round had full participation, so no round "
+             f"ran under fractional masses")
+    if not out["wan_MB"] <= max_wan:
+        fail(f"{label}: wan_MB {out['wan_MB']} exceeds {max_wan}")
+    print(f"phase b (Algorithm 1, semi_async, cellular-flaky): {wall:.1f} s")
 
 
 def run_sketch_path():
@@ -1286,6 +1480,8 @@ def main() -> int:
     times = time_kernels()
     times["flash_attention"] = time_flash()
     launches = run_main_path()
+    run_fedavg_path()
+    run_straggler_path()
     sketch_routes, w = run_sketch_path()
     pair_routes, pair_err = run_pairwise(w)
     del w

@@ -12,6 +12,10 @@ keeps a module per layer.  :func:`transformer_from_jax` and
 :func:`transformer_to_jax` unstack and restack them and transpose the dense
 weights between (in, out) and (out, in).  All four take and give numpy
 arrays (any array that ``numpy.asarray`` accepts on the way in).
+
+:func:`fleet_from_jax` carries a reference device table over, so the
+``semi_async`` parity tests run both engines on the same fleet (the port
+samples its own tables from a torch generator).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.models import cnn
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.sim.devices import DeviceFleet
 
 #: the LM stack's dense weights: (in, out) in the reference, (out, in) here
 DENSE = frozenset({"wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wi",
@@ -99,3 +104,10 @@ def transformer_to_jax(model: tf.Transformer) -> dict:
     if hasattr(model, "lm_head"):
         tree["lm_head"] = _to_ref("lm_head", model.lm_head)
     return tree
+
+
+def fleet_from_jax(fleet) -> DeviceFleet:
+    """The reference's ``DeviceFleet`` (columns of any array type) as the
+    port's table of numpy float32 columns."""
+    return DeviceFleet(**{f: np.array(getattr(fleet, f), np.float32)
+                          for f in DeviceFleet._fields})

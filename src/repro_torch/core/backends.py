@@ -24,7 +24,7 @@ Registered backends:
                CPU tensors).  Each base primitive counts its sweep over W.
 
 The reference's optional ``sketched_fused_round`` field serves only its
-sharded backends and waits for them (ROADMAP queue A item 10).
+sharded backends and waits for them (ROADMAP queue A.6).
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ permutations in and the federation loop draws its own from a
 ``torch.Generator``.
 
 The DP path (``dp_clip`` / ``dp_sigma``) waits for the simulation and
-privacy slice (ROADMAP queue A item 8); asking for it raises.
+privacy slice (ROADMAP queue A.3c); asking for it raises.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ def validate_dp(cfg: ClientConfig) -> None:
     if dp_enabled(cfg):
         raise NotImplementedError(
             "the DP client path waits for the simulation and privacy slice "
-            "(ROADMAP queue A item 8)")
+            "(ROADMAP queue A.3c)")
 
 
 def client_update(loss_fn: Callable[[dict, dict], torch.Tensor],

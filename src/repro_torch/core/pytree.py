@@ -81,3 +81,9 @@ def matrix_to_stacked(mat: torch.Tensor, layout, like: Params) -> Params:
         out[name] = _from_ref(leaf, perm, 1).to(t.dtype).contiguous()
         off += size
     return out
+
+
+def tree_bytes(params: Params) -> int:
+    """Total bytes of a parameter dict (communication accounting): every
+    leaf at its own dtype's width, as ``repro.core.pytree.tree_bytes``."""
+    return int(sum(t.numel() * t.element_size() for t in params.values()))

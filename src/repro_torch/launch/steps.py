@@ -3,7 +3,7 @@
   make_train_step — loss, gradient, and an SGD-momentum or Adam update
 
 The prefill, decode and FL-round steps wait for the serving and
-sharding slices (ROADMAP queue A items 9-11).
+sharding slices (ROADMAP queue A.4 and A.6).
 """
 from __future__ import annotations
 

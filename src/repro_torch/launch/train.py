@@ -2,7 +2,13 @@
 ``--mode pretrain`` (LM pretraining).
 
 ``--mode fl`` is the paper's experiment: federated training of the
-MNIST-surrogate CNN with coalition aggregation (Algorithm 1).  It prints the
+MNIST-surrogate CNN with coalition aggregation (Algorithm 1) or its FedAvg
+baseline (``--method fedavg``, ``fedavg_weighted`` with
+``--client-weights``, ``fedavg_trimmed`` with ``--trim``).  ``--engine
+semi_async`` runs it over a simulated device fleet (``--fleet``,
+``--participation``, ``--staleness``, ``--deadline``, ``--sim-seed``) and
+adds the substrate block (``fleet``, ``sim_time_s``, ``wan_MB``,
+``edge_MB``, ``mean_participation``) to the summary.  It prints the
 reference's JSON summary keys plus ``device``.
 
 ``--mode pretrain`` trains an LM of the zoo (``--arch``, default hymba-1.5b
@@ -35,6 +41,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl --device cpu \
       --regime shard --rounds 3 --clients 6 --coalitions 2 --local-epochs 1 \
       --n-train 600 --n-test 200
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl --method fedavg \
+      --engine semi_async --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --engine semi_async --fleet cellular-flaky --rounds 3
 """
 from __future__ import annotations
 
@@ -57,6 +67,8 @@ from repro_torch.models import zoo as zoo_mod
 # while still looking applied
 _EXTRA_CONSUMERS = {
     "top_m": ("coalition_topk",),
+    "trim": ("fedavg_trimmed",),
+    "client_weights": ("fedavg_weighted", "coalition", "coalition_topk"),
     "sketch": ("coalition", "coalition_topk"),
     "sketch_dim": ("coalition", "coalition_topk"),
 }
@@ -67,6 +79,12 @@ def _strategy_extras(args) -> dict:
     extras = {}
     if args.top_m is not None:
         extras["top_m"] = args.top_m
+    if args.trim is not None:
+        extras["trim"] = args.trim
+    if args.client_weights:
+        extras["client_weights"] = torch.tensor(
+            [float(v) for v in args.client_weights.split(",")],
+            dtype=torch.float32)
     if args.sketch != "identity":
         extras["sketch"] = args.sketch
         if args.sketch_dim is not None:
@@ -99,6 +117,8 @@ def run_fl(args) -> dict:
 
     extras = _strategy_extras(args)
     device = resolve_device(args.device)
+    if "client_weights" in extras:      # on the run's device, once
+        extras["client_weights"] = extras["client_weights"].to(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -110,7 +130,8 @@ def run_fl(args) -> dict:
         source = "synthetic-digits"
     (xtr, ytr), (xte, yte) = data
     scn = sim.make_scenario("independent", ytr, args.clients,
-                            regime=args.regime, seed=args.seed)
+                            fleet=args.fleet, regime=args.regime,
+                            seed=args.seed, sim_seed=args.sim_seed)
     cd = {k: torch.from_numpy(v).to(device) for k, v in
           loader.client_datasets(xtr, ytr, scn.index_matrix).items()}
     xte_t = torch.from_numpy(xte).to(device)
@@ -121,7 +142,10 @@ def run_fl(args) -> dict:
         rounds=args.rounds, method=args.method,
         client=ClientConfig(epochs=args.local_epochs,
                             batch_size=args.batch_size, lr=args.lr),
-        backend=args.backend, engine=args.engine)
+        backend=args.backend, engine=args.engine,
+        sim=sim.SimConfig(fleet=args.fleet, participation=args.participation,
+                          staleness_alpha=args.staleness,
+                          deadline=args.deadline, seed=args.sim_seed))
     strategy = strategies.make_strategy(
         args.method, n_clients=args.clients, n_coalitions=args.coalitions,
         backend=args.backend, **extras)
@@ -138,7 +162,8 @@ def run_fl(args) -> dict:
            "regime": args.regime, "scenario": "independent", "rho": 0.0,
            "scenario_spearman": round(scn.metadata["spearman"], 4),
            "source": source, "rounds": hist.rounds,
-           "strategy_extras": extras,
+           "strategy_extras": {k: (v.tolist() if torch.is_tensor(v) else v)
+                               for k, v in extras.items()},
            "test_acc": hist.test_acc, "train_loss": hist.train_loss,
            "final_assignment": hist.assignments[-1],
            "final_counts": hist.counts[-1],
@@ -149,9 +174,18 @@ def run_fl(args) -> dict:
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
            "local_s": hist.trace.local_s.tolist(),
-           "server_s": hist.trace.server_s.tolist()}
+           "server_s": hist.trace.server_s.tolist(), "history": hist}
+    if hist.sim_times is not None:      # the IoT-substrate accounting
+        out.update({
+            "fleet": args.fleet,
+            "sim_time_s": round(sum(hist.sim_times), 3),
+            "wan_MB": round(sum(hist.wan_bytes) / 1e6, 3),
+            "edge_MB": round(sum(hist.edge_bytes) / 1e6, 3),
+            "mean_participation": round(
+                float(np.mean(hist.participation)), 3)})
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("rounds", "local_s", "server_s")},
+                      if k not in ("rounds", "local_s", "server_s",
+                                   "history")},
                      indent=1, default=float))
     return out
 
@@ -238,10 +272,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-m", type=int, default=None,
                     help="coalition_topk: aggregate only the top_m largest "
                          "coalitions (default K - 1)")
+    ap.add_argument("--trim", type=int, default=None,
+                    help="fedavg_trimmed: per-coordinate trim count")
+    ap.add_argument("--client-weights", default=None,
+                    help="comma-separated per-client weights (fedavg_weighted"
+                         " / coalition barycenters), e.g. '1,1,2,4'")
     ap.add_argument("--model", default="cnn",
                     choices=sorted(zoo_mod.available_models()))
-    ap.add_argument("--engine", default="scan", choices=["scan", "python"],
-                    help="both run the same Python round loop in PyTorch")
+    ap.add_argument("--engine", default="scan",
+                    choices=["scan", "python", "semi_async"],
+                    help="scan and python run the same Python round loop; "
+                         "semi_async runs it over a simulated device fleet "
+                         "with partial participation and staleness-weighted "
+                         "merging")
+    # fl: IoT substrate (engine=semi_async)
+    ap.add_argument("--fleet", default="ideal",
+                    help="fleet profile name (see "
+                         "repro_torch.sim.available_fleets); the sampled "
+                         "profiles are the port's own tables")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="global scale on per-device availability")
+    ap.add_argument("--staleness", type=float, default=0.5,
+                    help="staleness decay exponent alpha in (1+tau)^-alpha")
+    ap.add_argument("--deadline", type=float, default=float("inf"),
+                    help="round deadline in simulated seconds")
+    ap.add_argument("--sim-seed", type=int, default=0,
+                    help="fleet sampling seed")
     # pretrain
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action="store_true")

@@ -8,7 +8,7 @@ reference keeps them (in, out), and :mod:`repro_torch.carry` transposes.
 
 Attention here is the path without a cache: training and full-sequence
 forward.  The cache branch and cross-attention wait for the serving slice
-(ROADMAP queue A item 11).
+(ROADMAP queue A.4).
 """
 from __future__ import annotations
 

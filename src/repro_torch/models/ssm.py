@@ -14,7 +14,7 @@ product).  The reference has no Pallas kernel here, so neither has the
 port; the loop is plain PyTorch.  Weights are (out, in) like every dense
 weight of the port; ``conv_w`` stays (k, d_inner) as in the reference.
 ``ssm_step`` and the prefill from a carried state wait for the serving slice
-(ROADMAP queue A item 11).
+(ROADMAP queue A.4).
 """
 from __future__ import annotations
 

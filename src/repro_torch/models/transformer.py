@@ -14,8 +14,8 @@ its sub-layers' parameters as ``ParameterDict``s (``attn``, ``ssm``,
 (out, in); :mod:`repro_torch.carry` moves parameters across.
 
 The ``moe``, ``vlm`` and ``audio``/encoder-decoder families raise
-``NotImplementedError``: they are ported with the rest of ROADMAP queue A
-item 11, as are the cache, ``prefill`` and ``decode_step``.
+``NotImplementedError``: they are ported with the rest of ROADMAP queue
+A.4, as are the cache, ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if flag:
             raise NotImplementedError(
                 f"{cfg.name}: the {family} family is not ported yet "
-                f"(ROADMAP queue A item 11)")
+                f"(ROADMAP queue A.4)")
 
 
 def _param_dict(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:

@@ -6,7 +6,7 @@ parameters onto the columns of the reference's client weight matrix
 (:mod:`repro_torch.core.pytree`).
 
 Ported so far: ``cnn``, the paper's MNIST CNN (§IV.D).  The reference's
-``transformer_tiny`` waits for ROADMAP queue A item 11.
+``transformer_tiny`` waits for ROADMAP queue A.4.
 """
 from __future__ import annotations
 

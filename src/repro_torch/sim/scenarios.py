@@ -7,7 +7,7 @@ rank.  Coupling only permutes which device holds which shard.
 
 Ported so far: ``independent`` — the decoupled sampling of the main training
 path (``rho`` must be 0).  ``correlated-skew`` and ``correlated-quantity``
-wait for the simulation slice (ROADMAP queue A item 8).
+wait for the scenarios slice (ROADMAP queue A.3b).
 """
 from __future__ import annotations
 

@@ -31,11 +31,19 @@ its launch counter by one, and no kernel may spill.  ``sq_dists_to_points``
 at full width (D > 2048) and ``segment_sum`` are swept the same way over
 their register routes and the kernels above them, for every W / points
 dtype mix and on bases one element off, with the same checks.
+``fused_coalition_stats`` is also held with an aggregation matrix of
+fractional masses (the ``semi_async`` engine's staleness weights
+``(1 + tau)^-0.5``, tau in 0..4, normalised as ``aggregation_matrix`` does),
+and a weighted fused round and a weighted sketched round (one client at
+weight 0, which cannot then be elected) on ``cuda`` must equal ``stream``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import coalitions as tco
+from repro_torch.core import fused as tfz
+from repro_torch.core import sketch as tsk
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_round as tfr
 from repro_torch.kernels import ops as tops
@@ -43,6 +51,7 @@ from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import reg_sweep as tsweep
 from repro_torch.kernels import segment_mean as tsm
+from repro_torch.sim import clock as tclock
 
 TOL = 5e-6
 SHAPES = [(10, 3, 1000, "float32"), (7, 2, 4097, "float32"),
@@ -590,3 +599,72 @@ def test_cuda_pairwise_sq_dists_kernels_do_not_spill(name, dtype):
         pytest.skip("needs a CUDA card")
     attrs = tpd.pairwise_kernel_attributes(getattr(torch, dtype), name)
     assert attrs["local_bytes"] == 0 and 0 < attrs["regs"] <= 255, attrs
+
+
+def _stale_masses(n):
+    """(N,) staleness-decayed masses (1 + tau)^-0.5, tau = 0..4 in turn."""
+    return tclock.staleness_weights(torch.arange(n) % 5, 0.5)
+
+
+def _fractional_m(n, k, seed=0, weights=None):
+    """(K, N) aggregation matrix of fractional masses on the card: a seeded
+    assignment, its coalitions' denominators as aggregation_matrix takes
+    them (an empty coalition falls back to its center at unit mass)."""
+    rng = np.random.default_rng(seed)
+    assign = torch.from_numpy(rng.integers(0, k, n))
+    centers = torch.from_numpy(rng.permutation(n)[:k])
+    if weights is None:
+        weights = _stale_masses(n)
+    oh_eff, _, denom = tfz.aggregation_matrix(assign, k, centers, weights)
+    return (oh_eff / denom[:, None]).contiguous().cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d,dtype", [(10, 3, 582_026, "float32"),
+                                         (10, 3, 582_026, "bfloat16"),
+                                         (16, 4, 70_001, "float32"),
+                                         (64, 8, 100_003, "float32")])
+def test_cuda_fused_coalition_stats_with_fractional_masses(n, k, d, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, _, _ = _inputs(n, k, d, dtype, seed=4)
+    m = _fractional_m(n, k, seed=n + d)
+    assert not torch.all((m == 0) | (m == m.max(dim=1, keepdim=True).values))
+    before = tfr.LAUNCHES["fused_coalition_stats"]
+    got = tfr.fused_coalition_stats(w, m)
+    torch.cuda.synchronize()
+    assert tfr.LAUNCHES["fused_coalition_stats"] == before + 1
+    for g, r in zip(got, tref.fused_coalition_stats(w, m)):
+        _close(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fused", "sketched countsketch"])
+def test_cuda_weighted_round_matches_stream(variant):
+    """A round under staleness weights with client 9 at weight 0: equal
+    assignment and centers on cuda and stream, θ within 5e-6 of its max,
+    the launches of the unweighted round, client 9 never a center."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, k, d = 10, 3, 100_003
+    w, _, _ = _inputs(n, k, d, "float32", seed=5)
+    w += 5.0 * (torch.arange(n, device="cuda") % k)[:, None]   # separated
+    weights = _stale_masses(n).cuda()
+    weights[9] = 0.0
+    state = tco.init_centers(w, k, perm=torch.arange(n))
+    kw, want = {}, {"center_sq_dists": 1, "fused_coalition_stats": 1}
+    if variant != "fused":
+        kw = {"sketcher": tsk.make_sketcher("countsketch", dim=256)}
+        want = {"sq_dists_to_points": 2, "segment_sum": 1}
+    tops.reset_launch_counts()
+    rc = tco.run_round(w, state, backend="cuda", client_weights=weights, **kw)
+    torch.cuda.synchronize()
+    moved = {name: c for name, c in tops.launch_counts().items() if c}
+    rs = tco.run_round(w, state, backend="stream", client_weights=weights,
+                       **kw)
+    assert moved == want
+    assert torch.equal(rc.assignment, rs.assignment)
+    assert torch.equal(rc.new_center_idx, rs.new_center_idx)
+    assert 9 not in rc.new_center_idx.tolist()
+    _close(rc.theta, rs.theta)
+    _close(rc.counts, rs.counts)
