@@ -67,6 +67,31 @@ In order, it
      fused-round kernel once a round and nothing else; per round WAN bytes
      = min(K, present) x 2 x model bytes and edge bytes = present x 2 x
      model bytes; fails if every round had full participation (phase b);
+  6c. runs Algorithm 1 on the ``event_driven`` engine over
+     ``cellular-flaky`` (``train --mode fl --engine event_driven --fleet
+     cellular-flaky --max-events 4 --energy-budget B``), B the dearest
+     device's cycle joules in the port's table at sim-seed 0, counters set
+     to 0 just before: each fused-round kernel 5 times (census + 4 events)
+     and nothing else; event times never decrease; every device's spend a
+     whole number of its cycle's joules within 1e-5 and within B; some
+     device retired and some alive; θ and accuracy finite (phase e);
+  6d. runs the reference's coupled-scenario example cut to 3 rounds
+     (``--engine semi_async --fleet cellular-flaky --scenario
+     correlated-skew --regime dirichlet --rho 1.0``), counters set to 0
+     just before: each fused-round kernel 3 times; the run's spearman and
+     permutation equal ``make_scenario``'s on the host (phase f);
+  6e. runs cohort mode over 1,048,576 devices (``--fleet cellular-flaky
+     --fleet-size 1048576 --rounds 3``), counters set to 0 just before:
+     each fused-round kernel 3 times; every cohort distinct devices of
+     positive availability; then times the schedule's sampling on the card
+     and holds ``sample_cohort`` at N = 1,048,576 on the card to the CPU
+     and to flat top-k from the same Gumbel row (phase g);
+  6f. runs ``--attack sign_flip --adv-frac 0.2 --rounds 3``, counters set
+     to 0 just before: each fused-round kernel 3 times; the adversaries
+     (2) are ``adversary_mask``'s; quarantine in [0, 1], contamination
+     finite and >= 0; then one local phase on the card through the DP path
+     at clip 1.0: delta norms within the clip at sigma 0, the noise
+     residual's std within 2% of 0.5 at sigma 0.5 (phase h);
   7. runs the sketch path, ``train --mode fl --method coalition_topk
      --sketch rproj --sketch-dim 256`` at its defaults for 2 rounds, counters
      set to 0 just before: ``sq_dists_to_points`` twice and ``segment_sum``
@@ -142,6 +167,26 @@ FEDAVG_ARGS = ["--mode", "fl", "--method", "fedavg", "--engine",
                "semi_async", "--rounds", str(ROUNDS)]
 STRAGGLER_ARGS = ["--mode", "fl", "--engine", "semi_async", "--fleet",
                   "cellular-flaky", "--rounds", str(ROUNDS)]
+#: the rest of the simulation tier: event_driven under an energy budget
+#: (phase e, census + EVENTS events), a coupled scenario (phase f, the
+#: reference's own example cut from 20 rounds to ROUNDS), cohort mode over
+#: the largest fleet of the reference's BENCH_scale.json sweep (phase g) and
+#: a byzantine attack (phase h)
+EVENTS = 4
+EVENT_ARGS = ["--mode", "fl", "--engine", "event_driven", "--fleet",
+              "cellular-flaky", "--max-events", str(EVENTS)]
+COUPLED_ARGS = ["--mode", "fl", "--engine", "semi_async", "--fleet",
+                "cellular-flaky", "--scenario", "correlated-skew",
+                "--regime", "dirichlet", "--rho", "1.0", "--rounds",
+                str(ROUNDS)]
+FLEET_SIZE = 1_048_576
+COHORT_ARGS = ["--mode", "fl", "--fleet", "cellular-flaky", "--fleet-size",
+               str(FLEET_SIZE), "--rounds", str(ROUNDS)]
+ATTACK_ARGS = ["--mode", "fl", "--attack", "sign_flip", "--adv-frac", "0.2",
+               "--rounds", str(ROUNDS)]
+#: the DP phase's noise multiplier and the bound on its residual's std
+DP_SIGMA = 0.5
+DP_STD_RTOL = 0.02
 #: the paper CNN's bytes in f32 (2 x this cross a link per model a round)
 MODEL_BYTES = 2_328_104
 #: server steps of the sketch path's run
@@ -1000,6 +1045,259 @@ def run_straggler_path() -> None:
     print(f"phase b (Algorithm 1, semi_async, cellular-flaky): {wall:.1f} s")
 
 
+def run_event_path() -> None:
+    """Phase e: Algorithm 1 on the event_driven engine over cellular-flaky
+    with an energy budget, through the training entry point, counters reset
+    just before: each fused-round kernel once at the census and once an
+    event, nothing else; the clock never runs back; every device's spend is
+    a whole number of its cycle's joules within the budget; some device
+    retires and some survives."""
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(EVENT_ARGS)
+    fleet = sim.make_fleet(args.fleet, args.clients, seed=args.sim_seed)
+    e = sim.device_event_energy(fleet, MODEL_BYTES).numpy()
+    # the dearest device pays its census and retires (0 J left); a device
+    # of at most half that cost can afford another cycle and stays
+    budget = float(e.max())
+    print(f"phase e: budget {budget!r} J = the dearest cycle of the port's "
+          f"{args.fleet} table at sim-seed {args.sim_seed} (cycle joules "
+          f"{np.round(e, 3).tolist()}); devices costing more than "
+          f"{budget / 2:.3f} J retire at the census")
+    if not 2 * e.min() <= budget:
+        fail("phase e: no device can afford a cycle after the census")
+    argv = [*EVENT_ARGS, "--energy-budget", repr(budget)]
+    label = f"train {' '.join(argv)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, EVENTS + 1)
+    expect_launches(label, launches, {"center_sq_dists": EVENTS + 1,
+                                      "fused_coalition_stats": EVENTS + 1})
+    hist = out["history"]
+    times = np.asarray(hist.event_times)
+    spent = hist.trace.energy_spent
+    for r in range(EVENTS + 1):
+        print(f"{label} event {r}: t {times[r]:.4f} s, participation "
+              f"{hist.participation[r]}, spent "
+              f"{np.round(spent[r], 3).tolist()} J, retired "
+              f"{hist.energy_exhausted[r]}")
+    cycles = spent / e[None, :]
+    if not np.all(np.diff(times) >= 0):
+        fail(f"{label}: event times {times.tolist()} run back")
+    if not np.allclose(cycles, np.rint(cycles), rtol=1e-5, atol=0):
+        fail(f"{label}: spends are not whole cycles: {cycles.tolist()}")
+    if not np.all(spent <= budget):
+        fail(f"{label}: a device spent more than the {budget} J budget")
+    if not 1 <= out["devices_exhausted"] < args.clients:
+        fail(f"{label}: {out['devices_exhausted']} devices retired; the "
+             f"budget should retire some and keep some")
+    if not all(bool(torch.isfinite(v).all())
+               for v in out["params"].values()):
+        fail(f"{label}: θ is not finite")
+    print(f"{label}: events {out['events']}, final_sim_time_s "
+          f"{out['final_sim_time_s']}, energy_spent_j "
+          f"{out['energy_spent_j']}, devices_exhausted "
+          f"{out['devices_exhausted']}, mean_participation "
+          f"{out['mean_participation']}")
+    print(f"phase e (Algorithm 1, event_driven, cellular-flaky): {wall:.1f} s")
+
+
+def run_coupled_path() -> None:
+    """Phase f: Algorithm 1 on semi_async over cellular-flaky with the
+    correlated-skew scenario at rho 1 (dirichlet split), counters reset just
+    before: each fused-round kernel once a round; the summary's spearman
+    and the run's permutation are make_scenario's on the host."""
+    from repro_torch import sim
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    label = f"train {' '.join(COUPLED_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(COUPLED_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    args = train.build_parser().parse_args(COUPLED_ARGS)
+    data = synthetic.mnist_idx()
+    ytr = (data[0][1] if data is not None
+           else synthetic.digits(args.n_train, seed=0)[1])
+    meta = sim.make_scenario(args.scenario, ytr, args.clients,
+                             fleet=args.fleet, regime=args.regime,
+                             rho=args.rho, seed=args.seed,
+                             sim_seed=args.sim_seed).metadata
+    got = out["scenario_metadata"]
+    print(f"{label}: scenario_spearman {out['scenario_spearman']} (host "
+          f"{round(meta['spearman'], 4)}), permutation {got['permutation']} "
+          f"(host {meta['permutation']}), participation "
+          f"{out['history'].participation}, sim_time_s "
+          f"{out['sim_time_s']}, wan_MB {out['wan_MB']}")
+    if (out["scenario_spearman"] != round(meta["spearman"], 4)
+            or got["permutation"] != meta["permutation"]):
+        fail(f"{label}: the run's scenario is not make_scenario's")
+    print(f"phase f (correlated-skew, rho 1, semi_async): {wall:.1f} s")
+
+
+def run_cohort_path() -> None:
+    """Phase g: cohort mode over a fleet of FLEET_SIZE devices on scan,
+    counters reset just before: each fused-round kernel once a round; every
+    schedule row distinct ids of positive effective availability.  Then the
+    sampler alone: its time for the run's schedule on the card, and
+    sample_cohort at N = FLEET_SIZE on the card and the CPU from the same
+    Gumbel row (identical ids; hierarchical equal to flat)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    label = f"train {' '.join(COHORT_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(COHORT_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    args = train.build_parser().parse_args(COHORT_ARGS)
+    fleet = sim.make_fleet(args.fleet, FLEET_SIZE, seed=args.sim_seed)
+    p = sim.effective_p(fleet, args.participation)
+    cohorts = out["history"].cohorts
+    print(f"{label}: cohorts {cohorts}, fleet_size {out['fleet_size']}, "
+          f"cohort_size {out['cohort_size']}")
+    for row in cohorts:
+        if len(set(row)) != args.clients or not bool(torch.all(p[row] > 0)):
+            fail(f"{label}: cohort {row} is not {args.clients} distinct "
+                 f"available devices")
+    w = p.cuda()
+    gumbel = sim.cohort.gumbel_rows(ROUNDS, FLEET_SIZE,
+                                    torch.Generator().manual_seed(0))
+    for _ in range(2):                     # the second call is timed
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sched = sim.sample_cohorts(w, ROUNDS, args.clients,
+                                   generator=torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        sim.sample_cohorts(w, ROUNDS, args.clients, gumbel=gumbel)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    print(f"phase g: the ({ROUNDS}, {args.clients}) schedule over "
+          f"N = {FLEET_SIZE}: {1e3 * (t2 - t1):.3f} ms with its Gumbel rows "
+          f"drawn on the host, {1e3 * (t3 - t2):.3f} ms from given rows "
+          f"(moved to the card and two top-k levels a row)")
+    card = sim.sample_cohort(w, args.clients, gumbel[0])
+    cpu = sim.sample_cohort(p, args.clients, gumbel[0])
+    flat = sim.sample_cohort(w, args.clients, gumbel[0],
+                             cell_size=FLEET_SIZE)
+    print(f"phase g: sample_cohort at N = {FLEET_SIZE}, cell "
+          f"{sim.DEFAULT_CELL}: card {card.tolist()}, CPU {cpu.tolist()}, "
+          f"flat {flat.tolist()}; schedule row 0 {sched[0].tolist()}")
+    if not (torch.equal(card.cpu(), cpu) and torch.equal(flat, card)):
+        fail("phase g: the card's cohort is not the CPU's or flat top-k's")
+    if len(set(card.tolist())) != args.clients or not np.all(
+            p.numpy()[card.cpu().numpy()] > 0):
+        fail("phase g: sample_cohort gave repeated or unavailable devices")
+    print(f"phase g (cohort mode, N = {FLEET_SIZE}): {wall:.1f} s")
+
+
+def run_attack_path() -> None:
+    """Phase h: sign_flip on 20% of the fleet on scan, counters reset just
+    before: each fused-round kernel once a round; the adversaries are
+    adversary_mask's on the host table; quarantine in [0, 1] and
+    contamination finite and >= 0 every round.  Then one local phase on the
+    card (the main path's clients, data and epochs) through the DP path at
+    clip 1.0: at sigma 0 every delta norm is within the clip, at sigma
+    DP_SIGMA the residual's std is within DP_STD_RTOL of DP_SIGMA."""
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.core import client, pytree
+    from repro_torch.data import loader, partition, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+
+    label = f"train {' '.join(ATTACK_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(ATTACK_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    args = train.build_parser().parse_args(ATTACK_ARGS)
+    mask = sim.adversary_mask(
+        sim.make_fleet(args.fleet, args.clients, seed=args.sim_seed),
+        args.adv_frac, args.rho_adv, seed=args.sim_seed)
+    hist = out["history"]
+    print(f"{label}: n_adversaries {out['n_adversaries']} (host mask "
+          f"{mask.astype(int).tolist()}), quarantine {hist.quarantine}, "
+          f"contamination {hist.contamination}, assignments "
+          f"{hist.assignments}")
+    if out["n_adversaries"] != 2 or any(
+            row != mask.astype(int).tolist() for row in hist.adversary):
+        fail(f"{label}: the adversaries are not adversary_mask's")
+    for q, c in zip(hist.quarantine, hist.contamination):
+        if not (0.0 <= q <= 1.0 and math.isfinite(c) and c >= 0.0):
+            fail(f"{label}: quarantine {q} or contamination {c} out of "
+                 f"range")
+    print(f"phase h (sign_flip, adv_frac 0.2): {wall:.1f} s")
+
+    model = zoo.make_model("cnn")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device="cuda")
+    x, y = synthetic.digits(args.n_train, seed=0)
+    cd = {k: torch.from_numpy(v).cuda() for k, v in loader.client_datasets(
+        x, y, partition.partition(args.regime, y, args.clients,
+                                  seed=0)).items()}
+    n_local = cd["y"].shape[1]
+    perms = torch.argsort(torch.rand(
+        (args.clients, args.local_epochs, n_local), generator=gen),
+        dim=-1).cuda()
+    t1 = time.perf_counter()
+    stacked, _ = client.local_phase(
+        model.loss_fn, params, cd, perms,
+        client.ClientConfig(epochs=args.local_epochs,
+                            batch_size=args.batch_size, lr=args.lr))
+    w = pytree.client_matrix(stacked, model.layout)
+    theta = pytree.flatten(params, model.layout)
+    clipped = client.privatize(w, theta, client.ClientConfig(dp_clip=1.0))
+    noised = client.privatize(
+        w, theta, client.ClientConfig(dp_clip=1.0, dp_sigma=DP_SIGMA),
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    raw = torch.linalg.vector_norm(w - theta, dim=1)
+    norms = torch.linalg.vector_norm(clipped - theta, dim=1)
+    std = float(torch.std(noised - clipped))
+    dp_s = time.perf_counter() - t1
+    print(f"phase h DP: one local phase ({args.local_epochs} epochs, "
+          f"{args.clients} clients, D = {w.shape[1]}) and the DP path in "
+          f"{dp_s:.2f} s; delta norms {[round(float(v), 4) for v in raw]} -> "
+          f"{[round(float(v), 6) for v in norms]} at clip 1.0; residual std "
+          f"at sigma {DP_SIGMA}: {std:.6f}")
+    if not bool(torch.all(norms <= 1.0 * (1 + 1e-6))):
+        fail("phase h: a clipped delta norm exceeds the clip")
+    if not abs(std / DP_SIGMA - 1.0) <= DP_STD_RTOL:
+        fail(f"phase h: noise std {std} is not within {DP_STD_RTOL:.0%} of "
+             f"{DP_SIGMA}")
+
+
 def run_sketch_path():
     """Phase 7: the sketch path through the training entry point, counters
     reset just before: sq_dists_to_points twice and segment_sum once per
@@ -1482,6 +1780,10 @@ def main() -> int:
     launches = run_main_path()
     run_fedavg_path()
     run_straggler_path()
+    run_event_path()
+    run_coupled_path()
+    run_cohort_path()
+    run_attack_path()
     sketch_routes, w = run_sketch_path()
     pair_routes, pair_err = run_pairwise(w)
     del w

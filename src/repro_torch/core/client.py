@@ -17,8 +17,17 @@ reference's threefry draws, so the parity tests pass the reference's
 permutations in and the federation loop draws its own from a
 ``torch.Generator``.
 
-The DP path (``dp_clip`` / ``dp_sigma``) waits for the simulation and
-privacy slice (ROADMAP queue A.3c); asking for it raises.
+**Differential privacy** (``dp_clip`` / ``dp_sigma``): :func:`privatize`
+clips each client's update delta ω' − θ to global L2 norm ``dp_clip`` and
+adds Gaussian noise of std ``dp_sigma * dp_clip`` (``dp_sigma`` with an
+infinite clip), the per-client Gaussian mechanism whose composed epsilon
+:func:`repro_torch.obs.privacy.gaussian_epsilon` accounts.  The reference
+applies it leaf by leaf at the end of each client's update; the port
+applies it to the rows of the (N, D) client matrix W, whose columns are the
+reference's leaves in its flatten order, so the two are the same function
+(the norm sums in another order).  The federation engine calls it after
+flattening.  The defaults (clip inf, sigma 0) skip the mechanism: W is
+returned as it came.
 """
 from __future__ import annotations
 
@@ -37,7 +46,8 @@ class ClientConfig(NamedTuple):
     lr: float = 0.01
     #: L2 clip norm for the reported update delta; inf = no clipping.
     dp_clip: float = float("inf")
-    #: Gaussian noise multiplier of the DP path; 0 = no noise.
+    #: Gaussian noise multiplier (noise std = dp_sigma * dp_clip); with an
+    #: infinite clip the std is dp_sigma itself (no epsilon guarantee).
     dp_sigma: float = 0.0
 
 
@@ -47,10 +57,42 @@ def dp_enabled(cfg: ClientConfig) -> bool:
 
 
 def validate_dp(cfg: ClientConfig) -> None:
-    if dp_enabled(cfg):
-        raise NotImplementedError(
-            "the DP client path waits for the simulation and privacy slice "
-            "(ROADMAP queue A.3c)")
+    if cfg.dp_sigma < 0.0 or not math.isfinite(cfg.dp_sigma):
+        raise ValueError(f"dp_sigma={cfg.dp_sigma} must be finite and >= 0")
+    if not cfg.dp_clip > 0.0:
+        raise ValueError(f"dp_clip={cfg.dp_clip} must be > 0")
+
+
+def privatize(w: torch.Tensor, theta: torch.Tensor, cfg: ClientConfig,
+              noise: torch.Tensor | None = None,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """The DP client path on the (N, D) client matrix ``w``.
+
+    Each row's delta from the (D,) broadcast model ``theta`` is scaled by
+    ``min(1, dp_clip / max(‖delta‖, 1e-12))`` (the norm accumulated in f32)
+    and, when ``dp_sigma > 0``, perturbed with ``noise`` (the (N, D)
+    standard normal draws, injected) or draws from ``generator`` on ``w``'s
+    device.  Without DP ``w`` comes back untouched.
+    """
+    if not dp_enabled(cfg):
+        return w
+    t = theta.to(w.dtype)[None, :]
+    d = w - t
+    if math.isfinite(cfg.dp_clip):
+        norm = torch.sqrt(torch.sum(torch.square(d.float()), dim=1))
+        scale = torch.clamp(cfg.dp_clip / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        d = d * scale.to(d.dtype)[:, None]
+        noise_std = cfg.dp_sigma * cfg.dp_clip
+    else:
+        noise_std = cfg.dp_sigma
+    if cfg.dp_sigma > 0.0:
+        if noise is None:
+            noise = torch.randn(w.shape, generator=generator,
+                                device=w.device, dtype=w.dtype)
+        d = d + torch.tensor(noise_std, dtype=d.dtype, device=d.device) * \
+            torch.as_tensor(noise, dtype=d.dtype, device=d.device)
+    return t + d
 
 
 def client_update(loss_fn: Callable[[dict, dict], torch.Tensor],

@@ -9,10 +9,9 @@ drives a registered strategy:
 
 Round 0 is the census: every client trains from θ^(0), the strategy state is
 initialised from those weights (Step I for coalition rules), and the first
-aggregation runs on them.  Rounds 1 .. R-1 follow.  So a run of R rounds
-makes R server steps.
+aggregation runs on them.  Rounds (or events) 1 .. R-1 follow.
 
-Three engines run that round program:
+Four engines run that round program:
 
   ``'scan'`` / ``'python'`` — the reference compiles the rounds into one
                  ``lax.scan`` program (``scan``) or loops on the host
@@ -28,25 +27,55 @@ Three engines run that round program:
                  aggregates the buffer under the weights ``(1 + tau)^-alpha``
                  (the ``mask`` of ``Strategy.round``).  Simulated seconds
                  and bytes on the WAN and edge links land in the
-                 :class:`Trace`.  On the ``ideal`` fleet every substrate
-                 step is an exact no-op and the engine equals ``scan`` bit
-                 for bit.
+                 :class:`Trace`.
+  ``'event_driven'`` — the continuous-time variant with no round barrier:
+                 each step pops the devices whose download + compute +
+                 upload cycle completes next off a queue of completion
+                 times; those online at that instant deliver, staleness is
+                 measured in simulated seconds since each buffered row was
+                 delivered, and every attempt charges the device's
+                 ``sim.device_event_energy`` to an energy budget.  A device
+                 that cannot afford another cycle retires; once all have,
+                 the clock freezes and the remaining events record zero
+                 participation.  It runs ``sim.max_events`` steps after the
+                 census (default ``rounds - 1``).
 
-Dense mode only: the ``event_driven`` engine, cohort mode and mesh mode
-wait for ROADMAP queue A.3b and A.6.
+On the ``ideal`` fleet (with an unbounded budget) every substrate step is an
+exact no-op and both substrate engines equal ``scan`` bit for bit.
+
+Two optional tiers compose with every engine:
+
+* **Cohort mode** (``FederationConfig.fleet_size``, ``scan``/``python``
+  only): a fleet of N devices (up to millions) exists only as its device
+  table; each round trains a cohort of C = ``n_clients`` devices drawn by
+  the hierarchical Gumbel top-k sampler (:mod:`repro_torch.sim.cohort`),
+  the whole (R, C) schedule sampled on the device before round 0.  Device
+  i trains on data shard ``i % S`` (S shards in ``client_data``).
+* **Attacks and DP**: a registered :mod:`repro_torch.sim.attacks` model
+  poisons its adversaries' batches before local training and their
+  updates after flattening (and after the DP path of
+  :func:`repro_torch.core.client.privatize`); every round then reports the
+  adversary mask, the quarantine fraction and the contamination bound,
+  O(N·K) algebra over the ``med_d2`` the coalition round already has.
+
+Mesh mode waits for ROADMAP queue A.6.
 
 Randomness: each round draws every client's per-epoch shuffles, and round 0
 draws the Step-I permutation, from one ``torch.Generator`` in that order.
-``semi_async`` draws its availability in bulk, before round 0, from a
-generator of its own (seeded from the run generator's seed offset by
-``sim.AVAILABILITY_STREAM``), so the client draws are those of ``scan``.
-:class:`Draws` injects them all instead (the parity tests pass the
-reference's threefry draws).
+Everything else draws from generators of its own, seeded from the run
+generator's seed offset by a stream tag, so the client draws stay those of
+``scan``: the availability draws (``sim.AVAILABILITY_STREAM``, in bulk
+before round 0), the cohort Gumbel rows (``sim.COHORT_STREAM``), the attack
+noise (``sim.ATTACK_STREAM``, on the run's device) and the DP noise
+(:data:`DP_STREAM`, on the run's device).  :class:`Draws` injects them all
+instead (the parity tests pass the reference's threefry draws).
 
 Per round the engine records the loss/accuracy, the coalition structure,
 the dynamics block (churn, size entropy, intra radius, barycenter drift)
 and the seconds spent in the local phase and in the server step (each ended
 by a device synchronise; the server step is the strategy's round alone).
+No value is read back to the host between the start of a round's local
+phase and the end of its server step.
 """
 from __future__ import annotations
 
@@ -60,10 +89,15 @@ import torch
 from repro_torch import sim as sim_mod
 from repro_torch.core import backends as bk
 from repro_torch.core import pytree, strategies
-from repro_torch.core.client import ClientConfig, local_phase, validate_dp
+from repro_torch.core.client import (ClientConfig, dp_enabled, local_phase,
+                                     privatize, validate_dp)
 from repro_torch.core.strategies import RoundMetrics, RoundResult, Strategy
 from repro_torch.models.zoo import FLModel
 from repro_torch.obs import metrics as obs_metrics
+
+#: the port's stream tag of the DP noise (the reference splits that key off
+#: each client's own); the DP generator's seed is offset by it
+DP_STREAM = 0xD9A1
 
 
 def bytes_per_param(w: torch.Tensor) -> int:
@@ -74,32 +108,51 @@ def bytes_per_param(w: torch.Tensor) -> int:
 
 
 class FederationConfig(NamedTuple):
-    n_clients: int = 10
+    n_clients: int = 10                # cohort width C in cohort mode
     n_coalitions: int = 3
     rounds: int = 30
     method: str = "coalition"          # any registered strategy name
     client: ClientConfig = ClientConfig()
     backend: str = "stream"            # distance/barycenter backend name
     engine: str = "scan"               # 'scan' | 'python' | 'semi_async'
+    #                                    | 'event_driven'
     sim: sim_mod.SimConfig = sim_mod.SimConfig()   # IoT substrate knobs
+    #: registered fleet size N of cohort mode (each round samples a cohort
+    #: of ``n_clients`` devices out of N); None = dense mode
+    fleet_size: int | None = None
+    #: registered byzantine attack name; None = every client honest
+    attack: str | None = None
+    #: fraction of the fleet compromised (mask fixed per fleet and
+    #: ``sim.seed``); 0.0 with an attack set gates every hook off
+    adv_frac: float = 0.0
+    #: adversary-capability rank coupling in [-1, 1] (+1 = the strongest
+    #: devices are compromised, -1 the weakest, 0 seeded-random)
+    rho_adv: float = 0.0
 
 
 class Draws(NamedTuple):
-    """Injected randomness for a run.
+    """Injected randomness for a run (None: drawn as without injection).
 
-    ``shuffles[r]`` is round r's (N, E, n) per-client, per-epoch sample
+    ``shuffles[r]`` is step r's (N, E, n) per-client, per-epoch sample
     order; ``center_perm`` the (N,) Step-I permutation of round 0;
-    ``availability`` the ``semi_async`` engine's census and per-round
-    availability booleans (None: drawn as without injected draws).
+    ``availability`` the substrate engines' census and per-step
+    availability booleans; ``cohorts`` the (R, C) cohort-mode schedule;
+    ``attack_noise[r]`` and ``dp_noise[r]`` step r's (N, D) standard normal
+    draws of the ``gaussian_noise`` attack and of the DP path.
     """
 
     shuffles: Sequence[Any]
     center_perm: Any
     availability: sim_mod.AvailabilityDraws | None = None
+    cohorts: Any = None
+    attack_noise: Sequence[Any] | None = None
+    dp_noise: Sequence[Any] | None = None
 
 
 class Trace(NamedTuple):
-    """Stacked per-round numpy arrays for R rounds."""
+    """Stacked per-round numpy arrays for R rounds (events under
+    ``event_driven``, where ``sim_time`` is the seconds since the previous
+    event and ``event_time`` the absolute timestamp)."""
 
     loss: np.ndarray        # (R,)   mean final-epoch training loss
     acc: np.ndarray         # (R,)   test accuracy of θ^(r)
@@ -111,11 +164,22 @@ class Trace(NamedTuple):
     drift: np.ndarray       # (R, K) ‖b_k(r) − b_k(r−1)‖
     local_s: np.ndarray     # (R,)   seconds in the local phase
     server_s: np.ndarray    # (R,)   seconds in the server step
-    # --- semi_async only (None on scan / python) -----------------------------
-    sim_time: np.ndarray | None = None       # (R,) simulated seconds a round
+    # --- semi_async / event_driven (None on scan / python) -------------------
+    sim_time: np.ndarray | None = None       # (R,) simulated seconds a step
     wan_bytes: np.ndarray | None = None      # (R,) bytes over the WAN link
     edge_bytes: np.ndarray | None = None     # (R,) bytes over edge links
     participation: np.ndarray | None = None  # (R, N) 0/1 participation mask
+    # --- event_driven only ---------------------------------------------------
+    event_time: np.ndarray | None = None        # (R,) absolute sim seconds
+    energy_spent: np.ndarray | None = None      # (R, N) cumulative joules
+    energy_exhausted: np.ndarray | None = None  # (R, N) 1 = device retired
+    # --- cohort mode only ----------------------------------------------------
+    cohort: np.ndarray | None = None            # (R, C) sampled device ids
+    # --- attack runs only ----------------------------------------------------
+    adversary: np.ndarray | None = None      # (R, N) 0/1 compromised rows
+    quarantine: np.ndarray | None = None     # (R,) adversaries embedded
+    #                                          among honest clients
+    contamination: np.ndarray | None = None  # (R,) honest-barycenter bound
 
 
 @dataclasses.dataclass
@@ -153,6 +217,11 @@ class History:
         return [float(x) for x in self.trace.entropy]
 
     @property
+    def radius(self) -> list[list[float]]:
+        """Per-round per-coalition intra radius (zeros for flat rules)."""
+        return self.trace.radius.astype(float).tolist()
+
+    @property
     def drift(self) -> list[list[float]]:
         return self.trace.drift.astype(float).tolist()
 
@@ -160,9 +229,13 @@ class History:
     def _float_list(arr) -> list[float] | None:
         return None if arr is None else [float(x) for x in arr]
 
+    @staticmethod
+    def _nested(arr, kind) -> list | None:
+        return None if arr is None else arr.astype(kind).tolist()
+
     @property
     def sim_times(self) -> list[float] | None:
-        """Per-round simulated seconds (semi_async only)."""
+        """Per-round simulated seconds (substrate engines only)."""
         return self._float_list(self.trace.sim_time)
 
     @property
@@ -175,14 +248,195 @@ class History:
 
     @property
     def participation(self) -> list[list[int]] | None:
-        if self.trace.participation is None:
-            return None
-        return self.trace.participation.astype(int).tolist()
+        return self._nested(self.trace.participation, int)
+
+    @property
+    def event_times(self) -> list[float] | None:
+        """Absolute simulated timestamp of each event (event_driven only)."""
+        return self._float_list(self.trace.event_time)
+
+    @property
+    def energy_spent(self) -> list[list[float]] | None:
+        """Per-device cumulative joules, per event (event_driven only)."""
+        return self._nested(self.trace.energy_spent, float)
+
+    @property
+    def energy_exhausted(self) -> list[list[int]] | None:
+        """Per-device retirement flags, per event (event_driven only)."""
+        return self._nested(self.trace.energy_exhausted, int)
+
+    @property
+    def cohorts(self) -> list[list[int]] | None:
+        """Per-round sampled fleet device ids (cohort mode only)."""
+        return self._nested(self.trace.cohort, int)
+
+    @property
+    def adversary(self) -> list[list[int]] | None:
+        """Per-round 0/1 compromised-row mask (attack runs only)."""
+        return self._nested(self.trace.adversary, int)
+
+    @property
+    def quarantine(self) -> list[float] | None:
+        """Per-round fraction of adversaries embedded among honest clients."""
+        return self._float_list(self.trace.quarantine)
+
+    @property
+    def contamination(self) -> list[float] | None:
+        """Per-round honest-barycenter contamination bound."""
+        return self._float_list(self.trace.contamination)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _Noise:
+    """Step r's standard normal draws shaped like a tensor: injected
+    (``rows[r]``) or drawn from ``generator`` on the tensor's device."""
+
+    def __init__(self, rows: Sequence[Any] | None,
+                 generator: torch.Generator | None):
+        self.rows, self.generator = rows, generator
+
+    def draw(self, r: int, like: torch.Tensor) -> torch.Tensor:
+        if self.rows is not None:
+            return torch.tensor(np.asarray(self.rows[r]), dtype=like.dtype,
+                                device=like.device)
+        return torch.randn(like.shape, generator=self.generator,
+                           device=like.device, dtype=like.dtype)
+
+
+class _Substrate:
+    """A substrate engine's state on the run's device.
+
+    ``census(w)`` fills the buffer with the round-0 weights, ``step(r, w)``
+    applies step r's availability to it and returns ``(matrix to
+    aggregate, weights, participation mask)``, and ``row(r, mask)`` gives
+    the step's substrate trace fields.
+    """
+
+    def __init__(self, fed: "Federation", avail: sim_mod.AvailabilityDraws,
+                 device: torch.device, model_bytes: int):
+        self.scfg, self.model_bytes = fed.cfg.sim, model_bytes
+        self.n_groups = fed.strategy.n_groups
+        self.hierarchical = fed.strategy.hierarchical
+        # everything the substrate reads goes to the device up front: the
+        # steps never read a value back to the host
+        self.stay = torch.tensor(np.asarray(avail.stay), dtype=torch.bool,
+                                 device=device)
+        self.fresh = torch.tensor(np.asarray(avail.fresh), dtype=torch.bool,
+                                  device=device)
+        self.astate = sim_mod.init_availability(avail.online, device)
+        self.dev_time = sim_mod.device_round_time(
+            fed.fleet, model_bytes, self.scfg.local_work, device)
+        self.ones = torch.ones((fed.cfg.n_clients,), dtype=torch.bool,
+                               device=device)
+        self.buf = None
+
+    def _stats(self, mask, deadline=float("inf")):
+        return sim_mod.round_stats(mask, self.dev_time, self.model_bytes,
+                                   self.n_groups, self.hierarchical,
+                                   deadline=deadline)
+
+
+class _SemiAsync(_Substrate):
+    """``semi_async``: availability and a deadline give each round's mask;
+    absent rows keep their buffered update, ``tau`` rounds old."""
+
+    def __init__(self, fed, avail, device, model_bytes):
+        super().__init__(fed, avail, device, model_bytes)
+        self.tau = torch.zeros_like(self.ones, dtype=torch.int32)
+
+    def census(self, w):
+        self.buf = w
+        return w, None, self.ones
+
+    def step(self, r, w):
+        mask, self.astate = sim_mod.sample_mask(
+            self.astate, self.stay[r - 1], self.fresh[r - 1],
+            device_time=self.dev_time, deadline=self.scfg.deadline)
+        torch.where(mask[:, None], w, self.buf, out=self.buf)
+        self.tau.add_(1).masked_fill_(mask, 0)
+        # tau == 0 decays to exactly 1.0: under full participation the
+        # weights are all ones and the round equals the synchronous one
+        return self.buf, sim_mod.staleness_weights(
+            self.tau, self.scfg.staleness_alpha), mask
+
+    def row(self, r, mask):
+        # the census round has no deadline to wait out
+        sim_t, wan, edge = self._stats(
+            mask, self.scfg.deadline if r else float("inf"))
+        return {"sim_time": sim_t, "wan_bytes": wan, "edge_bytes": edge,
+                "participation": mask.float()}
+
+
+class _EventDriven(_Substrate):
+    """The ``event_driven`` engine's queue, clock and energy ledger.
+
+    Per event: ``fire`` = the devices whose completion time is the queue's
+    minimum; ``deliver`` = ``fire`` and online at that instant (no
+    deadline); the buffer takes the delivered rows, weighted by
+    ``(1 + age_s)^-alpha`` with age in simulated seconds; then every fired
+    device pays its cycle's joules and retires once its energy is below the
+    next cycle's cost.  Ledgers update in place.
+    """
+
+    def __init__(self, fed, avail, device, model_bytes):
+        super().__init__(fed, avail, device, model_bytes)
+        self.e_event = sim_mod.device_event_energy(
+            fed.fleet, model_bytes, self.scfg.local_work).to(device)
+
+    def census(self, w):
+        self.buf = w
+        t0 = self._stats(self.ones)[0]
+        # The census is forced, so a device pays for it only up to its
+        # budget (the ledger never overdraws), and one that cannot afford
+        # the next full cycle starts retired.
+        paid0 = torch.clamp(self.e_event, max=float(self.scfg.energy_budget))
+        self.energy = torch.full_like(self.e_event,
+                                      float(self.scfg.energy_budget)) - paid0
+        self.spent = paid0
+        self.alive = self.energy >= self.e_event
+        self.next_t = torch.where(self.alive, t0 + self.dev_time,
+                                  torch.full_like(self.dev_time, np.inf))
+        self.last_t = torch.full_like(self.dev_time, 0.0) + t0
+        self.clock = self.t_now = t0
+        return w, None, self.ones
+
+    def step(self, r, w):
+        online, self.astate = sim_mod.sample_mask(
+            self.astate, self.stay[r - 1], self.fresh[r - 1])
+        # pop the next completion cohort; an all-inf queue (every device
+        # retired) fires nothing and freezes the clock
+        t_next = torch.min(self.next_t)
+        fired_any = torch.isfinite(t_next)
+        self.t_now = torch.where(fired_any, t_next, self.clock)
+        self.fire = (self.next_t == t_next) & fired_any
+        deliver = self.fire & online
+        torch.where(deliver[:, None], w, self.buf, out=self.buf)
+        torch.where(deliver, self.t_now, self.last_t, out=self.last_t)
+        # a row delivered this event has age exactly 0, weight exactly 1.0
+        return self.buf, sim_mod.staleness_weights(
+            self.t_now - self.last_t, self.scfg.staleness_alpha), deliver
+
+    def row(self, r, mask):
+        sim_t, wan, edge = self._stats(mask)
+        if r:
+            paid = self.fire.float() * self.e_event
+            self.energy.sub_(paid)
+            self.spent.add_(paid)
+            self.alive = self.energy >= self.e_event
+            torch.where(self.fire,
+                        torch.where(self.alive, self.t_now + self.dev_time,
+                                    torch.full_like(self.dev_time, np.inf)),
+                        self.next_t, out=self.next_t)
+            sim_t = self.t_now - self.clock
+            self.clock = self.t_now
+        return {"sim_time": sim_t, "wan_bytes": wan, "edge_bytes": edge,
+                "participation": mask.float(), "event_time": self.t_now,
+                "energy_spent": self.spent.clone(),
+                "energy_exhausted": (~self.alive).float()}
 
 
 class Federation:
@@ -192,25 +446,29 @@ class Federation:
       model: the :class:`~repro_torch.models.zoo.FLModel` clients train.
       eval_fn: params -> scalar test accuracy.
       cfg: federation configuration; ``cfg.method`` names a registered
-        strategy unless ``strategy`` is given.  Engine, backend, fleet,
-        scenario and ``rho`` are validated here, as the reference does.
+        strategy unless ``strategy`` is given.  Engine (``scan``,
+        ``python``, ``semi_async`` or ``event_driven``), backend, fleet,
+        scenario, ``rho``, the energy budget, the event budget, cohort
+        mode and the attack are validated here, as the reference does.
       strategy: optional pre-built :class:`Strategy` (overrides cfg.method).
-      fleet: optional device table for the substrate engine (the parity
-        tests pass the reference's, see
+      fleet: optional device table, ``fleet_size`` rows in cohort mode and
+        ``n_clients`` otherwise (the parity tests pass the reference's, see
         :func:`repro_torch.carry.fleet_from_jax`); default: sampled from
         ``cfg.sim.fleet`` and ``cfg.sim.seed``.
+      attack: optional pre-built :class:`repro_torch.sim.Attack` (overrides
+        cfg.attack; the way to set an attack's hyper-parameters).
     """
 
-    _ENGINES = ("python", "scan", "semi_async")
+    _ENGINES = ("event_driven", "python", "scan", "semi_async")
 
     def __init__(self, model: FLModel, eval_fn: Callable[[dict], torch.Tensor],
                  cfg: FederationConfig, strategy: Strategy | None = None,
-                 fleet: sim_mod.DeviceFleet | None = None):
+                 fleet: sim_mod.DeviceFleet | None = None,
+                 attack: sim_mod.Attack | None = None):
         if cfg.engine not in self._ENGINES:
             raise ValueError(
                 f"unknown engine {cfg.engine!r}; registered engines: "
-                f"{self._ENGINES} (event_driven waits for ROADMAP queue "
-                "A.3b)")
+                f"{self._ENGINES}")
         try:
             bk.get_backend(cfg.backend)
         except KeyError:
@@ -229,16 +487,80 @@ class Federation:
             raise ValueError(
                 f"rho={cfg.sim.rho} must be in [0, 1] (fleet-data coupling "
                 f"strength; 0 = independent sampling)")
+        if not cfg.sim.energy_budget >= 0:          # also rejects NaN
+            raise ValueError(
+                f"energy_budget={cfg.sim.energy_budget} must be >= 0 "
+                f"(joules; inf = unconstrained)")
+        if cfg.sim.max_events is not None and cfg.sim.max_events < 0:
+            raise ValueError(
+                f"max_events={cfg.sim.max_events} must be >= 0 "
+                f"(None = rounds - 1)")
+        if cfg.fleet_size is not None:
+            if cfg.fleet_size < cfg.n_clients:
+                raise ValueError(
+                    f"fleet_size={cfg.fleet_size} must be >= n_clients="
+                    f"{cfg.n_clients} (the cohort is sampled from the fleet)")
+            if cfg.engine not in ("scan", "python"):
+                raise ValueError(
+                    f"cohort mode (fleet_size set) supports the 'scan' and "
+                    f"'python' engines; {cfg.engine!r} carries dense "
+                    "fleet-sized buffers (staleness/energy ledgers) that do "
+                    "not cohortize")
+            if cfg.sim.scenario != "independent" or cfg.sim.rho != 0.0:
+                raise ValueError(
+                    "cohort mode requires the 'independent' scenario with "
+                    "rho=0 — coupled scenarios partition data jointly with "
+                    "a dense fleet")
+        if not 0.0 <= cfg.adv_frac < 1.0:       # also rejects NaN
+            raise ValueError(
+                f"adv_frac={cfg.adv_frac} must be in [0, 1) (a fully "
+                "compromised federation has no honest signal to aggregate)")
+        if not -1.0 <= cfg.rho_adv <= 1.0:      # also rejects NaN
+            raise ValueError(
+                f"rho_adv={cfg.rho_adv} must be in [-1, 1] (adversary-"
+                "capability rank coupling; 0 = random placement)")
+        if attack is None and cfg.attack is not None:
+            attack = sim_mod.make_attack(cfg.attack)     # raises on typo
+        if cfg.adv_frac > 0.0 and attack is None:
+            raise ValueError(
+                f"adv_frac={cfg.adv_frac} > 0 requires an attack "
+                f"(cfg.attack or the attack= argument); available: "
+                f"{sim_mod.available_attacks()}")
         validate_dp(cfg.client)
         self.model = model
         self.eval_fn = eval_fn
         self.cfg = cfg
+        self.attack = attack
         self.strategy = strategy if strategy is not None else \
             strategies.make_strategy(cfg.method, n_clients=cfg.n_clients,
                                      n_coalitions=cfg.n_coalitions,
                                      backend=cfg.backend)
+        n_fleet = cfg.fleet_size or cfg.n_clients
         self.fleet = fleet if fleet is not None else sim_mod.make_fleet(
-            cfg.sim.fleet, cfg.n_clients, seed=cfg.sim.seed)
+            cfg.sim.fleet, n_fleet, seed=cfg.sim.seed)
+        if len(self.fleet.compute_s) != n_fleet:
+            raise ValueError(
+                f"the fleet has {len(self.fleet.compute_s)} devices; this "
+                f"configuration needs {n_fleet}")
+        #: (N_fleet,) bool compromised-device mask (None without an
+        #: attack), deterministic in (fleet, adv_frac, rho_adv, sim.seed)
+        self.adversaries = None if attack is None else sim_mod.adversary_mask(
+            self.fleet, cfg.adv_frac, cfg.rho_adv, seed=cfg.sim.seed)
+
+    def _n_steps(self) -> int:
+        """Steps after the round-0 census (events for event_driven)."""
+        if self.cfg.engine == "event_driven" and \
+                self.cfg.sim.max_events is not None:
+            return self.cfg.sim.max_events
+        return self.cfg.rounds - 1
+
+    def _stream(self, tag: int, generator, device="cpu") -> torch.Generator:
+        """A generator of its own for one stream: the run generator's seed
+        (``sim.seed`` without one) offset by ``tag``."""
+        seed = (generator.initial_seed() if generator is not None
+                else self.cfg.sim.seed)
+        return torch.Generator(device=device).manual_seed(
+            (seed + tag) % 2**63)
 
     def _shuffles(self, r: int, n: int, device, generator, draws) -> torch.Tensor:
         if draws is not None:
@@ -263,17 +585,83 @@ class Federation:
         return torch.zeros((self.strategy.n_groups,), dtype=torch.float32,
                            device=device)
 
-    def _availability(self, generator, draws) -> sim_mod.AvailabilityDraws:
-        """The run's availability draws: injected, or drawn in bulk from a
-        generator of their own (the client draws stay those of scan)."""
-        if draws is not None and draws.availability is not None:
-            return draws.availability
-        seed = (generator.initial_seed() if generator is not None
-                else self.cfg.sim.seed)
-        gen = torch.Generator().manual_seed(
-            (seed + sim_mod.AVAILABILITY_STREAM) % 2**63)
-        return sim_mod.draw_availability(self.fleet, self.cfg.sim.participation,
-                                         self.cfg.rounds, gen)
+    def _attack_row(self, res: RoundResult, adv) -> dict:
+        """The attack block of a round's trace row (empty when clean):
+        O(N·K) algebra over the assignment and the coalition round's
+        ``med_d2``; flat rules, which have no barycenter geometry, report
+        contamination 0.0."""
+        if adv is None:
+            return {}
+        k = self.strategy.n_groups
+        q = obs_metrics.quarantine_fraction(res.metrics.assignment, adv, k)
+        if res.metrics.med_d2 is not None:
+            c = obs_metrics.contamination(res.metrics.med_d2,
+                                          res.metrics.assignment, adv, k)
+        else:
+            c = torch.zeros((), dtype=torch.float32, device=adv.device)
+        return {"adversary": adv, "quarantine": q, "contamination": c}
+
+    def _substrate(self, steps, generator, draws, device, model_bytes):
+        """The substrate engine's state (None on scan / python), its
+        availability draws injected or drawn in bulk from their own
+        generator (the client draws stay those of scan)."""
+        engines = {"semi_async": _SemiAsync, "event_driven": _EventDriven}
+        if self.cfg.engine not in engines:
+            return None
+        avail = None if draws is None else draws.availability
+        if avail is None:
+            avail = sim_mod.draw_availability(
+                self.fleet, self.cfg.sim.participation, steps + 1,
+                self._stream(sim_mod.AVAILABILITY_STREAM, generator))
+        return engines[self.cfg.engine](self, avail, device, model_bytes)
+
+    def _cohort_schedule(self, steps, generator, draws, device):
+        """The run's (steps + 1, C) cohort ids on the device (row 0 seats
+        the census), or None in dense mode: injected, or sampled from
+        Gumbel rows of their own generator."""
+        if self.cfg.fleet_size is None:
+            return None
+        weights = sim_mod.effective_p(self.fleet, self.cfg.sim.participation
+                                      ).to(device)
+        n_pos = int(torch.sum(weights > 0))
+        if n_pos < self.cfg.n_clients:
+            raise ValueError(
+                f"fleet has only {n_pos} devices with positive effective "
+                f"availability; cannot seat a cohort of {self.cfg.n_clients}")
+        if draws is not None and draws.cohorts is not None:
+            return torch.tensor(np.asarray(draws.cohorts), dtype=torch.long,
+                                device=device)
+        return sim_mod.sample_cohorts(
+            weights, steps + 1, self.cfg.n_clients,
+            generator=self._stream(sim_mod.COHORT_STREAM, generator))
+
+    def _local_phase(self, r, gp, client_data, perms, ids, adv, noise):
+        """Broadcast + vmapped ClientUpdate -> ((C, D) weights, (C,) losses).
+
+        In cohort mode device i trains on data shard ``i % S``.  With an
+        attack, the round's adversary rows poison their batch before
+        training and transform their update after the DP path; both hooks
+        are the identity where the mask is 0.
+        """
+        cfg = self.cfg
+        if ids is not None:
+            client_data = {k: v[ids % v.shape[0]]
+                           for k, v in client_data.items()}
+        if adv is not None:
+            client_data = self.attack.poison(client_data, adv)
+        stacked, losses = local_phase(self.model.loss_fn, gp, client_data,
+                                      perms, cfg.client)
+        w = pytree.client_matrix(stacked, self.model.layout)
+        if dp_enabled(cfg.client) or adv is not None:
+            theta = pytree.flatten(gp, self.model.layout)
+        if dp_enabled(cfg.client):
+            w = privatize(w, theta, cfg.client,
+                          noise=(noise["dp"].draw(r, w)
+                                 if cfg.client.dp_sigma > 0.0 else None))
+        if adv is not None:
+            w = self.attack.transform(w, theta, adv,
+                                      lambda: noise["attack"].draw(r, w))
+        return w, losses
 
     def run(self, init_params: dict[str, torch.Tensor],
             client_data: dict[str, torch.Tensor], *,
@@ -283,63 +671,53 @@ class Federation:
 
         Args:
           init_params: θ^(0), on the device the run uses.
-          client_data: dict of (n_clients, n_local, ...) tensors on that
-            device.
+          client_data: dict of (S, n_local, ...) tensors on that device
+            (S = n_clients shards; in cohort mode device i reads shard
+            ``i % S``).
           generator: CPU ``torch.Generator`` the shuffles and the Step-I
-            permutation are drawn from (ignored with ``draws``).
+            permutation are drawn from, and whose seed seeds the other
+            streams (ignored for what ``draws`` injects).
           draws: injected randomness (:class:`Draws`).
         """
         if generator is None and draws is None:
             raise ValueError("run needs a generator or injected draws")
-        cfg, scfg, strategy = self.cfg, self.cfg.sim, self.strategy
+        cfg, strategy = self.cfg, self.strategy
         layout = self.model.layout
         device = next(iter(client_data.values())).device
         n_local = next(iter(client_data.values())).shape[1]
-        semi = cfg.engine == "semi_async"
-        if semi:
-            # everything the substrate reads goes to the device up front:
-            # the rounds below never read a value back to the host
-            avail = self._availability(generator, draws)
-            stay = torch.tensor(np.asarray(avail.stay), dtype=torch.bool,
-                                device=device)
-            fresh = torch.tensor(np.asarray(avail.fresh), dtype=torch.bool,
-                                 device=device)
-            astate = sim_mod.init_availability(avail.online, device)
-            model_bytes = pytree.tree_bytes(init_params)
-            dev_time = sim_mod.device_round_time(self.fleet, model_bytes,
-                                                 scfg.local_work, device)
-            tau = torch.zeros((cfg.n_clients,), dtype=torch.int32,
-                              device=device)
+        steps = self._n_steps()
+        sub = self._substrate(steps, generator, draws, device,
+                              pytree.tree_bytes(init_params))
+        cohorts = self._cohort_schedule(steps, generator, draws, device)
+        adv_fleet = None if self.adversaries is None else torch.tensor(
+            self.adversaries, dtype=torch.float32, device=device)
+        noise = {"dp": _Noise(None if draws is None else draws.dp_noise,
+                              self._stream(DP_STREAM, generator, device)
+                              if cfg.client.dp_sigma > 0.0 else None),
+                 "attack": _Noise(
+                     None if draws is None else draws.attack_noise,
+                     self._stream(sim_mod.ATTACK_STREAM, generator, device)
+                     if adv_fleet is not None else None)}
         rows = []
         gp, state, prev_assign, prev_bary = init_params, None, None, None
-        for r in range(cfg.rounds):
+        for r in range(steps + 1):
             t0 = time.perf_counter()
+            ids = None if cohorts is None else cohorts[r]
+            adv = adv_fleet if ids is None or adv_fleet is None \
+                else adv_fleet[ids]
             perms = self._shuffles(r, n_local, device, generator, draws)
-            stacked, losses = local_phase(self.model.loss_fn, gp, client_data,
-                                          perms, cfg.client)
-            w = pytree.client_matrix(stacked, layout)
-            mask = eff = None
-            if semi and r == 0:             # the census fills the buffer
-                buf = w
-                mask = torch.ones((cfg.n_clients,), dtype=torch.bool,
-                                  device=device)
-            elif semi:
-                mask, astate = sim_mod.sample_mask(
-                    astate, stay[r - 1], fresh[r - 1], device_time=dev_time,
-                    deadline=scfg.deadline)
-                torch.where(mask[:, None], w, buf, out=buf)
-                tau.add_(1).masked_fill_(mask, 0)
-                # tau == 0 decays to exactly 1.0: under full participation
-                # eff is all ones and the round equals the synchronous one
-                eff = sim_mod.staleness_weights(tau, scfg.staleness_alpha)
+            w, losses = self._local_phase(r, gp, client_data, perms, ids,
+                                          adv, noise)
+            agg, eff, mask = w, None, None
+            if sub is not None:
+                agg, eff, mask = sub.step(r, w) if r else sub.census(w)
             _sync(device)
             t1 = time.perf_counter()
             if r == 0:
                 state = strategy.init_state(
                     w, perm=None if draws is None else draws.center_perm,
                     generator=generator)
-            res = strategy.round(buf if eff is not None else w, state,
-                                 mask=eff)
+            res = strategy.round(agg, state, mask=eff)
             _sync(device)
             t2 = time.perf_counter()
             state = res.state
@@ -365,14 +743,11 @@ class Federation:
                 row["churn"] = obs_metrics.membership_churn(assignment,
                                                             prev_assign)
                 row["drift"] = obs_metrics.barycenter_drift(bary, prev_bary)
-            if semi:
-                # the census round has no deadline to wait out
-                sim_t, wan, edge = sim_mod.round_stats(
-                    mask, dev_time, model_bytes, strategy.n_groups,
-                    strategy.hierarchical,
-                    deadline=scfg.deadline if r else float("inf"))
-                row.update(sim_time=sim_t, wan_bytes=wan, edge_bytes=edge,
-                           participation=mask.float())
+            if sub is not None:
+                row.update(sub.row(r, mask))
+            if ids is not None:
+                row["cohort"] = ids
+            row.update(self._attack_row(res, adv))
             rows.append({k: v.detach().cpu().numpy() if torch.is_tensor(v)
                          else np.asarray(v) for k, v in row.items()})
             prev_assign, prev_bary = assignment, bary

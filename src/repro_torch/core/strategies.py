@@ -58,6 +58,10 @@ class RoundMetrics(NamedTuple):
     counts: torch.Tensor       # (n_groups,) float32 group sizes / masses
     #: (n_groups,) float32 intra radius; None lets the engine report zeros
     radius: torch.Tensor | None = None
+    #: (N, n_groups) float32 client->barycenter squared distances the
+    #: coalition round already has for the medoid election (the attack
+    #: path's contamination bound reads it); None for flat rules
+    med_d2: torch.Tensor | None = None
 
 
 class RoundResult(NamedTuple):
@@ -249,7 +253,8 @@ class CoalitionStrategy(Strategy):
         return RoundResult(theta=theta, state=r.state,
                            metrics=RoundMetrics(assignment=r.assignment,
                                                 counts=r.counts,
-                                                radius=r.radius),
+                                                radius=r.radius,
+                                                med_d2=r.med_d2),
                            barycenters=r.barycenters)
 
     def round(self, w, state, mask=None):

@@ -8,8 +8,19 @@ baseline (``--method fedavg``, ``fedavg_weighted`` with
 semi_async`` runs it over a simulated device fleet (``--fleet``,
 ``--participation``, ``--staleness``, ``--deadline``, ``--sim-seed``) and
 adds the substrate block (``fleet``, ``sim_time_s``, ``wan_MB``,
-``edge_MB``, ``mean_participation``) to the summary.  It prints the
-reference's JSON summary keys plus ``device``.
+``edge_MB``, ``mean_participation``) to the summary; ``--engine
+event_driven`` runs it as continuous-time completion events under a
+per-device energy budget (``--energy-budget``, ``--max-events``) and adds
+the energy block (``energy_budget_j``, ``events``, ``final_sim_time_s``,
+``energy_spent_j``, ``devices_exhausted``).  ``--scenario`` and ``--rho``
+couple the fleet to the data partition (``correlated-skew``,
+``correlated-quantity``).  ``--fleet-size N`` is cohort mode: each round
+trains a cohort of ``--clients`` devices sampled from a fleet of N
+(``scan``/``python``).  ``--attack`` with ``--adv-frac`` and ``--rho-adv``
+compromises a fraction of the fleet and adds the attack block;
+``--dp-clip`` and ``--dp-sigma`` turn on the DP client path and add the DP
+block with its epsilon.  It prints the reference's JSON summary keys plus
+``device``.
 
 ``--mode pretrain`` trains an LM of the zoo (``--arch``, default hymba-1.5b
 at full size; ``--reduced`` for the 2-layer f32 variant) on
@@ -45,6 +56,16 @@ Examples:
       --engine semi_async --rounds 3
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
       --engine semi_async --fleet cellular-flaky --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --engine event_driven --fleet cellular-flaky --energy-budget 50 \
+      --max-events 4
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --engine semi_async --fleet cellular-flaky --scenario correlated-skew \
+      --regime dirichlet --rho 1.0 --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --fleet cellular-flaky --fleet-size 1048576 --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --attack sign_flip --adv-frac 0.2 --rounds 3
 """
 from __future__ import annotations
 
@@ -60,6 +81,7 @@ from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import strategies
 from repro_torch.data import partition
 from repro_torch.models import zoo as zoo_mod
+from repro_torch.sim import attacks as sim_attacks
 
 
 # which strategies consume each CLI hyper-parameter: factories tolerate
@@ -100,6 +122,11 @@ def _strategy_extras(args) -> dict:
     return extras
 
 
+def _finite(v: float, ndigits: int) -> float | None:
+    """Round for JSON, mapping non-finite values to null (RFC 8259)."""
+    return round(float(v), ndigits) if np.isfinite(v) else None
+
+
 def resolve_device(name: str) -> torch.device:
     """The run's device; a CUDA device must exist, there is no fallback."""
     device = torch.device(name)
@@ -109,12 +136,29 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+#: what run_fl returns beside the printed summary: the reference's list of
+#: rounds, the per-round seconds, the History, the final θ params and the
+#: scenario's metadata (its permutation and ranks)
+_UNPRINTED = ("rounds", "local_s", "server_s", "history", "params",
+              "scenario_metadata")
+
+
 def run_fl(args) -> dict:
     from repro_torch import sim
     from repro_torch.core.client import ClientConfig
     from repro_torch.core.server import Federation, FederationConfig
     from repro_torch.data import loader, synthetic
+    from repro_torch.obs import privacy
 
+    # an undersized fleet fails before any data loads
+    if args.fleet_size is not None:
+        if args.fleet_size < args.clients:
+            raise SystemExit(f"--fleet-size {args.fleet_size} must be >= "
+                             f"--clients {args.clients} (the per-round "
+                             f"cohort is sampled from the fleet)")
+        if args.engine not in ("scan", "python"):
+            raise SystemExit("--fleet-size (cohort mode) requires --engine "
+                             "scan or python")
     extras = _strategy_extras(args)
     device = resolve_device(args.device)
     if "client_weights" in extras:      # on the run's device, once
@@ -129,9 +173,12 @@ def run_fl(args) -> dict:
                 synthetic.digits(args.n_test, seed=1))
         source = "synthetic-digits"
     (xtr, ytr), (xte, yte) = data
-    scn = sim.make_scenario("independent", ytr, args.clients,
+    # joint fleet + data sampling: the scenario permutes which device holds
+    # which shard; the engine samples the same fleet from fleet / sim_seed
+    scn = sim.make_scenario(args.scenario, ytr, args.clients,
                             fleet=args.fleet, regime=args.regime,
-                            seed=args.seed, sim_seed=args.sim_seed)
+                            rho=args.rho, seed=args.seed,
+                            sim_seed=args.sim_seed)
     cd = {k: torch.from_numpy(v).to(device) for k, v in
           loader.client_datasets(xtr, ytr, scn.index_matrix).items()}
     xte_t = torch.from_numpy(xte).to(device)
@@ -141,11 +188,17 @@ def run_fl(args) -> dict:
         n_clients=args.clients, n_coalitions=args.coalitions,
         rounds=args.rounds, method=args.method,
         client=ClientConfig(epochs=args.local_epochs,
-                            batch_size=args.batch_size, lr=args.lr),
+                            batch_size=args.batch_size, lr=args.lr,
+                            dp_clip=args.dp_clip, dp_sigma=args.dp_sigma),
         backend=args.backend, engine=args.engine,
+        fleet_size=args.fleet_size, attack=args.attack,
+        adv_frac=args.adv_frac, rho_adv=args.rho_adv,
         sim=sim.SimConfig(fleet=args.fleet, participation=args.participation,
                           staleness_alpha=args.staleness,
-                          deadline=args.deadline, seed=args.sim_seed))
+                          deadline=args.deadline,
+                          energy_budget=args.energy_budget,
+                          max_events=args.max_events, seed=args.sim_seed,
+                          scenario=args.scenario, rho=args.rho))
     strategy = strategies.make_strategy(
         args.method, n_clients=args.clients, n_coalitions=args.coalitions,
         backend=args.backend, **extras)
@@ -156,10 +209,10 @@ def run_fl(args) -> dict:
     t0 = time.time()
     fed = Federation(model, lambda p: model.accuracy(p, xte_t, yte_t), cfg,
                      strategy=strategy)
-    _, hist = fed.run(params, cd, generator=gen)
+    gp, hist = fed.run(params, cd, generator=gen)
     out = {"mode": "fl", "method": args.method, "engine": args.engine,
            "model": args.model, "sketch": args.sketch,
-           "regime": args.regime, "scenario": "independent", "rho": 0.0,
+           "regime": args.regime, "scenario": args.scenario, "rho": args.rho,
            "scenario_spearman": round(scn.metadata["spearman"], 4),
            "source": source, "rounds": hist.rounds,
            "strategy_extras": {k: (v.tolist() if torch.is_tensor(v) else v)
@@ -174,7 +227,11 @@ def run_fl(args) -> dict:
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
            "local_s": hist.trace.local_s.tolist(),
-           "server_s": hist.trace.server_s.tolist(), "history": hist}
+           "server_s": hist.trace.server_s.tolist(), "history": hist,
+           "params": gp, "scenario_metadata": scn.metadata}
+    if args.fleet_size is not None:
+        out["fleet_size"] = args.fleet_size
+        out["cohort_size"] = args.clients
     if hist.sim_times is not None:      # the IoT-substrate accounting
         out.update({
             "fleet": args.fleet,
@@ -183,9 +240,33 @@ def run_fl(args) -> dict:
             "edge_MB": round(sum(hist.edge_bytes) / 1e6, 3),
             "mean_participation": round(
                 float(np.mean(hist.participation)), 3)})
-    print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("rounds", "local_s", "server_s",
-                                   "history")},
+    if hist.quarantine is not None:     # the byzantine-attack block
+        out.update({
+            "attack": args.attack,
+            "adv_frac": args.adv_frac,
+            "rho_adv": args.rho_adv,
+            "n_adversaries": int(np.sum(hist.adversary[-1])),
+            # null = diverged run (NaN is not valid RFC 8259 JSON)
+            "final_quarantine": _finite(hist.quarantine[-1], 4),
+            "final_contamination": _finite(hist.contamination[-1], 6)})
+    if args.dp_sigma > 0.0 or np.isfinite(args.dp_clip):   # the DP block
+        eps = privacy.gaussian_epsilon(args.dp_sigma, args.rounds)
+        out.update({
+            "dp_sigma": args.dp_sigma,
+            # null = unconstrained (inf is not valid RFC 8259 JSON)
+            "dp_clip": args.dp_clip if np.isfinite(args.dp_clip) else None,
+            "dp_epsilon": round(eps, 4) if np.isfinite(eps) else None})
+    if hist.event_times is not None:    # the event_driven energy ledger
+        out.update({
+            "energy_budget_j": (args.energy_budget
+                                if np.isfinite(args.energy_budget) else None),
+            "events": len(hist.event_times),
+            "final_sim_time_s": round(hist.event_times[-1], 3),
+            "energy_spent_j": round(
+                float(np.sum(hist.trace.energy_spent[-1])), 3),
+            "devices_exhausted": int(
+                np.sum(hist.trace.energy_exhausted[-1]))})
+    print(json.dumps({k: v for k, v in out.items() if k not in _UNPRINTED},
                      indent=1, default=float))
     return out
 
@@ -280,11 +361,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", default="cnn",
                     choices=sorted(zoo_mod.available_models()))
     ap.add_argument("--engine", default="scan",
-                    choices=["scan", "python", "semi_async"],
+                    choices=["scan", "python", "semi_async", "event_driven"],
                     help="scan and python run the same Python round loop; "
                          "semi_async runs it over a simulated device fleet "
                          "with partial participation and staleness-weighted "
-                         "merging")
+                         "merging; event_driven as continuous-time "
+                         "completion events under per-device energy "
+                         "budgets")
+    ap.add_argument("--fleet-size", type=int, default=None,
+                    help="cohort mode: a fleet of this many devices, of "
+                         "which an availability-weighted cohort of "
+                         "--clients trains each round (--engine scan or "
+                         "python)")
     # fl: IoT substrate (engine=semi_async)
     ap.add_argument("--fleet", default="ideal",
                     help="fleet profile name (see "
@@ -296,8 +384,43 @@ def build_parser() -> argparse.ArgumentParser:
                     help="staleness decay exponent alpha in (1+tau)^-alpha")
     ap.add_argument("--deadline", type=float, default=float("inf"),
                     help="round deadline in simulated seconds")
+    ap.add_argument("--energy-budget", type=float, default=float("inf"),
+                    help="per-device energy budget in joules "
+                         "(engine=event_driven; each train/transmit cycle "
+                         "depletes it and exhausted devices retire)")
+    ap.add_argument("--max-events", type=int, default=None,
+                    help="event budget of the event_driven engine "
+                         "(default: rounds - 1)")
     ap.add_argument("--sim-seed", type=int, default=0,
                     help="fleet sampling seed")
+    # fl: joint fleet+data scenarios (repro_torch.sim.scenarios)
+    ap.add_argument("--scenario", default="independent",
+                    help="joint fleet+data scenario (see "
+                         "repro_torch.sim.available_scenarios): "
+                         "'independent', 'correlated-skew' (weak devices "
+                         "hold the most label-skewed shards) or "
+                         "'correlated-quantity'")
+    ap.add_argument("--rho", type=float, default=0.0,
+                    help="fleet-data coupling strength in [0, 1]; 0 is "
+                         "the independent sampling")
+    # fl: adversaries and privacy (repro_torch.sim.attacks, DP client path)
+    ap.add_argument("--attack", default=None,
+                    choices=sorted(sim_attacks.available_attacks()),
+                    help="byzantine attack of the compromised fraction of "
+                         "clients; absent = every client honest")
+    ap.add_argument("--adv-frac", type=float, default=0.0,
+                    help="fraction of the fleet compromised, in [0, 1)")
+    ap.add_argument("--rho-adv", type=float, default=0.0,
+                    help="adversary placement rank coupling in [-1, 1]: "
+                         "+1 the strongest devices, -1 the weakest, 0 "
+                         "seeded-random")
+    ap.add_argument("--dp-clip", type=float, default=float("inf"),
+                    help="per-client L2 clip norm of the update delta "
+                         "(inf = no clipping)")
+    ap.add_argument("--dp-sigma", type=float, default=0.0,
+                    help="Gaussian noise multiplier of the DP client path "
+                         "(noise std = dp_sigma * dp_clip); the composed "
+                         "epsilon lands in the summary")
     # pretrain
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action="store_true")

@@ -47,14 +47,21 @@ class SimConfig(NamedTuple):
                           round.
     ``local_work``      — simulated compute units one local round costs
                           (scales ``DeviceFleet.compute_s``).
+    ``energy_budget``   — per-device energy budget in joules of the
+                          ``event_driven`` engine: every train-and-report
+                          cycle costs ``device_event_energy`` and a device
+                          that can no longer afford one retires (inf =
+                          unconstrained).
+    ``max_events``      — events after the census of the ``event_driven``
+                          engine; None = ``rounds - 1``.
     ``seed``            — fleet-sampling seed.
     ``scenario``        — registered fleet+data scenario name (validated by
                           the engine, recorded for provenance).
     ``rho``             — fleet-data coupling strength in [0, 1].
 
-    The reference's ``energy_budget`` and ``max_events`` serve its
-    ``event_driven`` engine, which the port does not have yet (ROADMAP
-    queue A.3b).
+    ``staleness_alpha`` decays ``tau`` in rounds under ``semi_async`` and in
+    simulated seconds under ``event_driven``; ``deadline`` serves
+    ``semi_async`` only.
     """
 
     fleet: str = "ideal"
@@ -62,6 +69,8 @@ class SimConfig(NamedTuple):
     staleness_alpha: float = 0.5
     deadline: float = float("inf")
     local_work: float = 1.0
+    energy_budget: float = float("inf")
+    max_events: int | None = None
     seed: int = 0
     scenario: str = "independent"
     rho: float = 0.0

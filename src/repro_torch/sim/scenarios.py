@@ -5,9 +5,21 @@ A *scenario* produces ``(DeviceFleet, index_matrix, metadata)`` from one
 seed, with a coupling knob ``rho`` between device capability rank and shard
 rank.  Coupling only permutes which device holds which shard.
 
-Ported so far: ``independent`` — the decoupled sampling of the main training
-path (``rho`` must be 0).  ``correlated-skew`` and ``correlated-quantity``
-wait for the scenarios slice (ROADMAP queue A.3b).
+Built-ins:
+
+  ``independent``          — the decoupled sampling (``rho`` must be 0).
+  ``correlated-skew``      — shard rank = negative label entropy: at
+                             ``rho = 1`` the weakest device holds the most
+                             label-skewed shard.
+  ``correlated-quantity``  — shard rank = fewest unique samples (pair with
+                             the ``quantity`` regime).
+
+Everything here is numpy and deterministic.  Given the same device table,
+the permutation, index matrix and ``spearman`` equal the reference's
+exactly.  The port samples its fleets from its own generator
+(:mod:`repro_torch.sim.devices`), so on a sampled profile the capability
+ranks, and with them the permutation, follow the port's table, not the
+reference's for the same ``sim_seed``.
 """
 from __future__ import annotations
 
@@ -127,6 +139,16 @@ def label_skew_rank(labels: np.ndarray,
     return _ranks(-ent)
 
 
+def quantity_rank(index_matrix: np.ndarray) -> np.ndarray:
+    """(N,) shard data-poverty ranks: 0 = most unique samples, N-1 = fewest.
+
+    The ``quantity`` regime pads data-poor clients by resampling, so the
+    unique-index count of a row is its effective dataset size.
+    """
+    uniq = np.array([len(np.unique(row)) for row in index_matrix])
+    return _ranks(-uniq)
+
+
 def couple(cap_rank: np.ndarray, shard_rank: np.ndarray,
            rho: float) -> np.ndarray:
     """Shard→device permutation interpolating identity (rho=0) and full
@@ -179,9 +201,29 @@ def _independent(labels, n_clients, *, fleet, regime, rho, seed, sim_seed,
     if rho != 0.0:
         raise ValueError(
             f"scenario 'independent' has no coupling to tune; rho={rho} "
-            f"must be 0")
+            f"must be 0 (use 'correlated-skew' or 'correlated-quantity')")
     return _coupled(labels, n_clients, fleet=fleet, regime=regime, rho=0.0,
                     seed=seed, sim_seed=sim_seed,
                     shard_rank_fn=lambda idx: label_skew_rank(labels, idx),
                     name="independent", **kw)
 
+
+
+@register_scenario("correlated-skew")
+def _correlated_skew(labels, n_clients, *, fleet, regime, rho, seed,
+                     sim_seed, **kw) -> Scenario:
+    """Label-skew coupling: weak devices hold the most label-skewed shards."""
+    return _coupled(labels, n_clients, fleet=fleet, regime=regime, rho=rho,
+                    seed=seed, sim_seed=sim_seed,
+                    shard_rank_fn=lambda idx: label_skew_rank(labels, idx),
+                    name="correlated-skew", **kw)
+
+
+@register_scenario("correlated-quantity")
+def _correlated_quantity(labels, n_clients, *, fleet, regime, rho, seed,
+                         sim_seed, **kw) -> Scenario:
+    """Quantity coupling: weak devices hold the data-poorest shards."""
+    return _coupled(labels, n_clients, fleet=fleet, regime=regime, rho=rho,
+                    seed=seed, sim_seed=sim_seed,
+                    shard_rank_fn=quantity_rank,
+                    name="correlated-quantity", **kw)

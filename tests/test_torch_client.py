@@ -134,8 +134,14 @@ def test_local_phase_is_client_update_per_client():
 
 
 def test_dp_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="DP"):
-        tclient.validate_dp(tclient.ClientConfig(dp_sigma=1.0))
+    """The DP path has landed: validate_dp takes a DP configuration and, as
+    the reference's, rejects only bad values."""
+    tclient.validate_dp(tclient.ClientConfig(dp_sigma=1.0))
+    tclient.validate_dp(tclient.ClientConfig(dp_clip=1.0, dp_sigma=0.5))
+    with pytest.raises(ValueError, match="dp_sigma"):
+        tclient.validate_dp(tclient.ClientConfig(dp_sigma=-1.0))
+    with pytest.raises(ValueError, match="dp_clip"):
+        tclient.validate_dp(tclient.ClientConfig(dp_clip=0.0))
 
 
 @pytest.mark.parametrize("lr", [0.01, 0.1, 0.5])

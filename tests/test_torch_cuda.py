@@ -36,6 +36,16 @@ fractional masses (the ``semi_async`` engine's staleness weights
 ``(1 + tau)^-0.5``, tau in 0..4, normalised as ``aggregation_matrix`` does),
 and a weighted fused round and a weighted sketched round (one client at
 weight 0, which cannot then be elected) on ``cuda`` must equal ``stream``.
+
+The simulation tier on the card: the cohort sampler on the card must give
+the CPU's ids from the same Gumbel rows at N = 1,048,576 (and its
+hierarchical top-k flat top-k's); an ``event_driven`` run on the card
+(the CNN on ``cuda``) must keep the CPU run's fire sets and energy ledger
+(arithmetic on the same tables and draws, held exactly), every device's
+spend a whole number of its cycle cost within the budget; the attack hooks
+on card tensors must equal their CPU results bit for bit (elementwise
+f32), and the DP path must bound every delta norm by the clip and match
+the CPU with the same noise.
 """
 import numpy as np
 import pytest
@@ -51,6 +61,8 @@ from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import reg_sweep as tsweep
 from repro_torch.kernels import segment_mean as tsm
+from repro_torch import sim as tsim
+from repro_torch.core import client as tclient
 from repro_torch.sim import clock as tclock
 
 TOL = 5e-6
@@ -668,3 +680,133 @@ def test_cuda_weighted_round_matches_stream(variant):
     assert 9 not in rc.new_center_idx.tolist()
     _close(rc.theta, rs.theta)
     _close(rc.counts, rs.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,cell", [(1_048_576, 10, 4096),
+                                      (100_003, 64, 64)])
+def test_cuda_cohort_sampling_matches_cpu(n, c, cell):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(n)
+    w = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    w[::11] = 0.0
+    gumbel = tsim.cohort.gumbel_rows(2, n, torch.Generator().manual_seed(1))
+    cpu = tsim.sample_cohorts(torch.from_numpy(w), 2, c, gumbel=gumbel,
+                              cell_size=cell)
+    card = tsim.sample_cohorts(torch.from_numpy(w).cuda(), 2, c,
+                               gumbel=gumbel, cell_size=cell)
+    flat = tsim.sample_cohorts(torch.from_numpy(w).cuda(), 2, c,
+                               gumbel=gumbel, cell_size=n)
+    assert card.is_cuda
+    assert torch.equal(card.cpu(), cpu) and torch.equal(flat, card)
+    for row in cpu.tolist():
+        assert len(set(row)) == c and np.all(w[row] > 0)
+
+
+def _event_run(device, budget):
+    from repro_torch.core.server import Federation, FederationConfig
+    from repro_torch.data import loader, partition, synthetic
+    from repro_torch.models import zoo
+
+    (x, y), (xte, yte) = synthetic.digits(80, seed=0), \
+        synthetic.digits(40, seed=1)
+    idx = partition.partition("shard", y, 4, seed=0)
+    cd = {k: torch.from_numpy(v).to(device)
+          for k, v in loader.client_datasets(x, y, idx).items()}
+    model = zoo.make_model("cnn")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device=device)
+    cfg = FederationConfig(
+        n_clients=4, n_coalitions=2, rounds=3,
+        backend="cuda" if device == "cuda" else "stream",
+        engine="event_driven",
+        client=tclient.ClientConfig(epochs=1),
+        sim=tsim.SimConfig(fleet="cellular-flaky", energy_budget=budget,
+                           max_events=4))
+    xte_t, yte_t = torch.from_numpy(xte).to(device), \
+        torch.from_numpy(yte).to(device)
+    fed = Federation(model, lambda p: model.accuracy(p, xte_t, yte_t), cfg)
+    return fed, fed.run(params, cd, generator=gen)
+
+
+@pytest.mark.cuda
+def test_cuda_event_driven_ledger_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fleet = tsim.make_fleet("cellular-flaky", 4)
+    e = tsim.device_event_energy(fleet, 2_328_104).numpy()
+    # the dearest device pays its census and retires; a device of at most
+    # half its cost survives the census
+    budget = float(e.max())
+    assert 2 * e.min() <= budget
+    fed, (gp, hist) = _event_run("cuda", budget)
+    _, (_, want) = _event_run("cpu", budget)
+    for field in ("participation", "energy_spent", "energy_exhausted",
+                  "event_time", "sim_time", "wan_bytes", "edge_bytes"):
+        np.testing.assert_array_equal(getattr(hist.trace, field),
+                                      getattr(want.trace, field),
+                                      err_msg=field)
+    spent = hist.trace.energy_spent
+    cycles = spent / e[None, :]
+    np.testing.assert_allclose(cycles, np.rint(cycles), rtol=1e-5)
+    assert np.all(spent <= budget) and np.all(np.diff(hist.event_times) >= 0)
+    exhausted = hist.trace.energy_exhausted[-1]
+    assert 0 < exhausted.sum() < len(exhausted)
+    assert all(torch.isfinite(v).all() for v in gp.values())
+    assert np.all(np.isfinite(hist.test_acc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(tsim.available_attacks()))
+def test_cuda_attack_hooks_match_cpu(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    n, d = 10, 582_026
+    w = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    theta = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    adv = torch.from_numpy((np.arange(n) % 4 == 1).astype(np.float32))
+    atk = tsim.make_attack(name)
+    cpu = atk.transform(w, theta, adv, lambda: noise)
+    card = atk.transform(w.cuda(), theta.cuda(), adv.cuda(),
+                         lambda: noise.cuda())
+    assert torch.equal(card.cpu(), cpu)
+    clean = atk.transform(w.cuda(), theta.cuda(), torch.zeros(n).cuda(),
+                          lambda: noise.cuda())
+    assert torch.equal(clean.cpu(), w)
+    data = {"x": torch.rand(n, 5, 28, 28, 1),
+            "y": torch.randint(0, 10, (n, 5), dtype=torch.int32)}
+    got = atk.poison({k: v.cuda() for k, v in data.items()}, adv.cuda())
+    want = atk.poison(data, adv)
+    for k in data:
+        assert torch.equal(got[k].cpu(), want[k])
+
+
+@pytest.mark.cuda
+def test_cuda_dp_path_bounds_norms_and_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(4)
+    n, d = 10, 582_026
+    theta = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    w = theta + torch.from_numpy(
+        (rng.standard_normal((n, d)) * np.linspace(1e-4, 1e-2, n)[:, None])
+        .astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    for sigma in (0.0, 0.5):
+        cfg = tclient.ClientConfig(dp_clip=1.0, dp_sigma=sigma)
+        card = tclient.privatize(w.cuda(), theta.cuda(), cfg,
+                                 noise=noise.cuda())
+        cpu = tclient.privatize(w, theta, cfg, noise=noise)
+        _close(card, cpu)
+        if sigma == 0.0:
+            norms = torch.linalg.vector_norm(card - theta.cuda(), dim=1)
+            assert torch.all(norms <= 1.0 * (1 + 1e-6))
+            clipped = card
+    drawn = tclient.privatize(w.cuda(), theta.cuda(), tclient.ClientConfig(
+        dp_clip=1.0, dp_sigma=0.5),
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    std = float(torch.std(drawn - clipped))
+    assert abs(std / 0.5 - 1.0) < 0.02

@@ -18,6 +18,22 @@ its run key (repro/sim/availability.py) and injected.  Assignments and
 participation must be equal, the simulated seconds and bytes within rtol
 1e-6, the counts (staleness-weighted masses) within 1e-5.  On the ``ideal``
 fleet the port's ``semi_async`` must equal its own ``scan`` bit for bit.
+
+Cohort mode runs the same way over a ``lognormal-edge`` fleet of 64
+devices, the reference's schedule (``sample_cohorts`` on the
+``COHORT_STREAM`` fork of its run key) injected: cohorts, assignments and
+counts must be equal, θ and the accuracy within the bounds above.  That
+run trains softmax regression, not the CNN: a cohort seats shards under
+other clients' sample orders (device i trains on shard i % 6), and there
+the CNN's gradient meets exact ties.  Saturated strokes of the synthetic
+digits give 2x2 max-pool windows equal maxima, and which one takes the
+gradient then depends on how each convolution rounds: on one such batch
+the port's batched f32 gradient equals the f64 one and the reference's
+differs from both by 5% in conv2, so θ drifts by ~6e-4 of max|θ| while
+the cohorts, assignments and counts stay equal.  The CNN goes through
+cohort mode in the CLI test.  The
+validation of a configuration must raise where the reference's does, and
+the CLI's new flags print the reference's summary keys.
 """
 import json
 import os
@@ -53,15 +69,18 @@ N_CLIENTS, K, ROUNDS, EPOCHS, N_TRAIN, N_TEST = 6, 2, 3, 1, 600, 200
 THETA_TOL = 1e-4
 
 
-def availability_draws(key, fleet, participation: float = 1.0):
-    """The reference's census and per-round availability draws for
-    ``key``'s run (its ``_prologue_semi_async`` and ``sample_mask``)."""
+def availability_draws(key, fleet, participation: float = 1.0, *,
+                       rows: int = ROUNDS):
+    """The reference's census and per-step availability draws for
+    ``key``'s run of ``rows`` rounds or events (its
+    ``_prologue_semi_async`` / ``_prologue_event_driven`` and
+    ``sample_mask``)."""
     p = jsim.effective_p(fleet, participation)
     akey, k0 = jax.random.split(
         jax.random.fold_in(key, jsim.AVAILABILITY_STREAM))
     online = np.asarray(jax.random.bernoulli(k0, p))
     stay, fresh = [], []
-    for _ in range(1, ROUNDS):
+    for _ in range(1, rows):
         akey, k_stay, k_fresh = jax.random.split(akey, 3)
         stay.append(np.asarray(jax.random.bernoulli(k_stay,
                                                     fleet.persistence)))
@@ -70,9 +89,13 @@ def availability_draws(key, fleet, participation: float = 1.0):
                                   fresh=np.stack(fresh))
 
 
-def reference_draws(key, n_local: int, availability=None) -> Draws:
+def reference_draws(key, n_local: int, availability=None, *,
+                    rows: int = ROUNDS, noise_dim: int | None = None
+                    ) -> Draws:
     """The shuffles and Step-I permutation the reference draws from ``key``
-    (and the availability draws, when given)."""
+    for ``rows`` rounds or events (and the availability draws, when given;
+    with ``noise_dim`` D, the (N, D) attack noise of each round's
+    ``ATTACK_STREAM`` fold, as ``Federation._local_phase`` draws it)."""
     def shuffles(round_key):
         return np.stack([
             np.stack([np.asarray(jax.random.permutation(ek, n_local))
@@ -80,13 +103,18 @@ def reference_draws(key, n_local: int, availability=None) -> Draws:
             for ck in jax.random.split(round_key, N_CLIENTS)])
 
     key, k0, kc = jax.random.split(key, 3)
-    rounds = [shuffles(k0)]
+    round_keys = [k0]
     center_perm = np.asarray(jax.random.permutation(kc, N_CLIENTS))
-    for _ in range(1, ROUNDS):
+    for _ in range(1, rows):
         key, kr = jax.random.split(key)
-        rounds.append(shuffles(kr))
-    return Draws(shuffles=rounds, center_perm=center_perm,
-                 availability=availability)
+        round_keys.append(kr)
+    noise = None if noise_dim is None else [
+        np.asarray(jax.random.normal(
+            jax.random.fold_in(k, jsim.ATTACK_STREAM),
+            (N_CLIENTS, noise_dim), jnp.float32)) for k in round_keys]
+    return Draws(shuffles=[shuffles(k) for k in round_keys],
+                 center_perm=center_perm, availability=availability,
+                 attack_noise=noise)
 
 
 def _data():
@@ -97,37 +125,83 @@ def _data():
     return loader.client_datasets(xtr, ytr, scn.index_matrix), (xte, yte)
 
 
-def _run_both(method="coalition", engine="scan", fleet="ideal"):
+def _linear():
+    """Softmax regression on the flattened image in both packages: (its
+    reference init, loss, accuracy; the port's FLModel).  No ReLU and no
+    pooling, so its gradient has no ties for rounding to break."""
+    def jloss(p, batch):
+        x = batch["x"].reshape(batch["x"].shape[0], -1)
+        logp = jax.nn.log_softmax(x @ p["w"] + p["b"])
+        return -jnp.mean(jnp.take_along_axis(logp, batch["y"][:, None], 1))
+
+    def jacc(p, x, y):
+        pred = jnp.argmax(x.reshape(x.shape[0], -1) @ p["w"] + p["b"], -1)
+        return jnp.mean((pred == y).astype(jnp.float32))
+
+    def tloss(p, batch):
+        x = batch["x"].reshape(batch["x"].shape[0], -1)
+        logp = torch.log_softmax(x @ p["w"] + p["b"], dim=-1)
+        return -torch.mean(torch.gather(logp, 1, batch["y"].long()[:, None]))
+
+    def tacc(p, x, y):
+        pred = torch.argmax(x.reshape(x.shape[0], -1) @ p["w"] + p["b"], -1)
+        return torch.mean((pred == y).float())
+
+    init = {"b": jnp.zeros((10,)),
+            "w": 0.01 * jax.random.normal(jax.random.key(0), (784, 10))}
+    model = zoo.FLModel(name="linear", init=None, loss_fn=tloss,
+                        accuracy=tacc, layout=(("b", "b", None),
+                                               ("w", "w", None)))
+    return (init, jloss, jacc), model
+
+
+def _run_both(method="coalition", engine="scan", fleet="ideal", *,
+              sim_kw=None, fed_kw=None, rows=ROUNDS, attack_noise=False,
+              linear=False):
     """One seeded run through each package, the reference's draws (and
-    fleet table) injected into the port's."""
+    fleet table, cohort schedule and attack noise) injected into the
+    port's.  ``sim_kw`` and ``fed_kw`` go to both packages' ``SimConfig``
+    and ``FederationConfig``; ``rows`` is the run's rounds or events."""
+    sim_kw, fed_kw = sim_kw or {}, fed_kw or {}
     data, (xte, yte) = _data()
-    init = jcnn.init(jax.random.key(0))
+    (init, jloss, jacc), model = _linear() if linear else (
+        (jcnn.init(jax.random.key(0)), jcnn.loss_fn, jcnn.accuracy),
+        zoo.make_model("cnn"))
     key = jax.random.key(1)
-    jsimcfg = jsim.SimConfig(fleet=fleet)
+    jsimcfg = jsim.SimConfig(fleet=fleet, **sim_kw)
     jcfg = JFederationConfig(n_clients=N_CLIENTS, n_coalitions=K,
                              rounds=ROUNDS, method=method, engine=engine,
                              client=JClientConfig(epochs=EPOCHS),
-                             sim=jsimcfg)
+                             sim=jsimcfg, **fed_kw)
     xte_j, yte_j = jnp.asarray(xte), jnp.asarray(yte)
     jgp, jhist = JFederation(
-        jcnn.loss_fn, lambda p: jcnn.accuracy(p, xte_j, yte_j), jcfg,
+        jloss, lambda p: jacc(p, xte_j, yte_j), jcfg,
     ).run(init, jax.tree.map(jnp.asarray, data), key)
 
-    jfleet = jsim.make_fleet(fleet, N_CLIENTS, seed=jsimcfg.seed)
-    avail = availability_draws(key, jfleet) if engine == "semi_async" \
-        else None
-    model = zoo.make_model("cnn")
+    jfleet = jsim.make_fleet(fleet, fed_kw.get("fleet_size") or N_CLIENTS,
+                             seed=jsimcfg.seed)
+    avail = availability_draws(key, jfleet, rows=rows) \
+        if engine in ("semi_async", "event_driven") else None
+    draws = reference_draws(key, data["y"].shape[1], avail, rows=rows,
+                            noise_dim=jpt.flatten(init).shape[0]
+                            if attack_noise else None)
+    if fed_kw.get("fleet_size") is not None:
+        draws = draws._replace(cohorts=np.asarray(jsim.sample_cohorts(
+            jax.random.fold_in(key, jsim.COHORT_STREAM),
+            jsim.effective_p(jfleet, jsimcfg.participation), rows,
+            N_CLIENTS)))
     xte_t, yte_t = torch.from_numpy(xte), torch.from_numpy(yte)
     cfg = FederationConfig(n_clients=N_CLIENTS, n_coalitions=K, rounds=ROUNDS,
                            method=method, engine=engine,
                            client=ClientConfig(epochs=EPOCHS),
-                           sim=tsim.SimConfig(fleet=fleet))
+                           sim=tsim.SimConfig(fleet=fleet, **sim_kw),
+                           **fed_kw)
     gp, hist = Federation(
         model, lambda p: model.accuracy(p, xte_t, yte_t), cfg,
         fleet=carry.fleet_from_jax(jfleet),
-    ).run(carry.params_from_jax(jax.tree.map(np.asarray, init)),
-          {k: torch.from_numpy(v) for k, v in data.items()},
-          draws=reference_draws(key, data["y"].shape[1], avail))
+    ).run(carry.params_from_jax(jax.tree.map(np.asarray, init),
+                                model.layout),
+          {k: torch.from_numpy(v) for k, v in data.items()}, draws=draws)
     theta_ref = np.asarray(jpt.flatten(jgp))
     theta = tpt.flatten(gp, model.layout).numpy()
     return (theta, hist), (theta_ref, jhist)
@@ -208,9 +282,103 @@ def test_semi_async_on_ideal_equals_scan_bit_for_bit(method):
     assert hist_s.trace.sim_time is None
 
 
+def test_cohort_mode_matches_reference():
+    (theta, hist), (theta_ref, jhist) = _run_both(
+        fleet="lognormal-edge", fed_kw={"fleet_size": 64}, linear=True)
+    cohorts = np.asarray(hist.cohorts)
+    assert cohorts.shape == (ROUNDS, N_CLIENTS)
+    np.testing.assert_array_equal(cohorts, np.asarray(jhist.cohorts))
+    assert all(len(set(row)) == N_CLIENTS for row in hist.cohorts)
+    assert hist.assignments == jhist.assignments
+    assert hist.counts == jhist.counts
+    # at most 2 of the n_test predictions differ (counted, since the f32
+    # accuracies 0.3 and 0.29 are 0.01000002 apart)
+    flips = np.abs(np.rint(np.asarray(hist.test_acc) * N_TEST)
+                   - np.rint(np.asarray(jhist.test_acc) * N_TEST))
+    assert flips.max() <= 2
+    _assert_theta_close(theta, theta_ref)
+
+
+def test_cohort_schedule_is_sampled_from_its_own_stream():
+    """Without injection the schedule comes from the COHORT_STREAM
+    generator: distinct ids with positive availability, the same for the
+    same run seed, and the client shuffles are those of dense ``scan``."""
+    data, (xte, yte) = _data()
+    model = zoo.make_model("cnn")
+    cd = {k: torch.from_numpy(v) for k, v in data.items()}
+    runs = []
+    for fleet_size in (5000, 5000, None):
+        gen = torch.Generator().manual_seed(2)
+        params = model.init(gen)
+        cfg = FederationConfig(n_clients=N_CLIENTS, n_coalitions=K,
+                               rounds=2, client=ClientConfig(epochs=EPOCHS),
+                               fleet_size=fleet_size,
+                               sim=tsim.SimConfig(fleet="cellular-flaky"))
+        fed = Federation(model, lambda p: 0.0, cfg)
+        runs.append((fed, fed.run(params, cd, generator=gen)[1]))
+    (fed, a), (_, b), (_, dense) = runs
+    assert a.cohorts == b.cohorts and dense.cohorts is None
+    p = tsim.effective_p(fed.fleet).numpy()
+    for row in a.cohorts:
+        assert len(set(row)) == N_CLIENTS and np.all(p[row] > 0)
+    assert a.cohorts[0] != a.cohorts[1]
+
+
+def test_history_radius_is_the_reference_list_view():
+    data, (xte, yte) = _data()
+    model = zoo.make_model("cnn")
+    cd = {k: torch.from_numpy(v) for k, v in data.items()}
+    for method in ("coalition", "fedavg"):
+        gen = torch.Generator().manual_seed(4)
+        cfg = FederationConfig(n_clients=N_CLIENTS, n_coalitions=K,
+                               rounds=2, method=method,
+                               client=ClientConfig(epochs=EPOCHS))
+        _, hist = Federation(model, lambda p: 0.0, cfg).run(
+            model.init(gen), cd, generator=gen)
+        assert hist.radius == hist.trace.radius.astype(float).tolist()
+        assert len(hist.radius) == 2 and len(hist.radius[0]) == K
+        if method == "fedavg":
+            assert hist.radius == [[0.0] * K] * 2
+        else:
+            assert any(v > 0 for row in hist.radius for v in row)
+
+
+@pytest.mark.parametrize("kw", [
+    {"fleet_size": 4}, {"fleet_size": 64, "engine": "semi_async"},
+    {"fleet_size": 64, "engine": "event_driven"},
+    {"fleet_size": 64, "sim": {"scenario": "correlated-skew", "rho": 0.5}},
+    {"adv_frac": 0.2}, {"attack": "nope"},
+    {"attack": "sign_flip", "adv_frac": 1.0},
+    {"attack": "sign_flip", "adv_frac": float("nan")},
+    {"attack": "sign_flip", "rho_adv": 1.5},
+    {"sim": {"energy_budget": -1.0}}, {"sim": {"max_events": -2}},
+    {"client": {"dp_sigma": -1.0}}, {"client": {"dp_clip": 0.0}}],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_validation_mirrors_reference(kw):
+    """Every configuration the reference rejects at construction, the port
+    rejects too."""
+    kw = dict(kw)
+    sim_kw, client_kw = kw.pop("sim", {}), kw.pop("client", {})
+    common = dict(n_clients=N_CLIENTS, n_coalitions=K, **kw)
+    with pytest.raises(ValueError):
+        JFederation(jcnn.loss_fn, lambda p: 0.0, JFederationConfig(
+            client=JClientConfig(**client_kw), sim=jsim.SimConfig(**sim_kw),
+            **common))
+    with pytest.raises(ValueError):
+        Federation(zoo.make_model("cnn"), lambda p: 0.0, FederationConfig(
+            client=ClientConfig(**client_kw), sim=tsim.SimConfig(**sim_kw),
+            **common))
+
+
 def test_federation_validates_engine_fleet_and_rho():
     model = zoo.make_model("cnn")
-    for cfg in (FederationConfig(engine="event_driven"),
+    for cfg in (FederationConfig(engine="event_driven",
+                                 sim=tsim.SimConfig(energy_budget=-1.0)),
+                FederationConfig(engine="event_driven",
+                                 sim=tsim.SimConfig(
+                                     energy_budget=float("nan"))),
+                FederationConfig(engine="event_driven",
+                                 sim=tsim.SimConfig(max_events=-1)),
                 FederationConfig(engine="nope"),
                 FederationConfig(sim=tsim.SimConfig(fleet="nope")),
                 FederationConfig(sim=tsim.SimConfig(rho=1.5)),
@@ -244,7 +412,14 @@ def test_cli_prints_reference_keys(capsys):
     ["--method", "fedavg_trimmed", "--trim", "1"],
     ["--engine", "semi_async", "--fleet", "cellular-flaky", "--rounds", "2"],
     ["--method", "fedavg", "--engine", "semi_async", "--fleet", "uniform",
-     "--deadline", "3"]], ids=lambda e: "-".join(a.strip("-") for a in e))
+     "--deadline", "3"],
+    ["--engine", "event_driven", "--fleet", "cellular-flaky",
+     "--energy-budget", "40", "--scenario", "correlated-skew", "--regime",
+     "dirichlet", "--rho", "1.0", "--rounds", "2"],
+    ["--fleet-size", "4096", "--rounds", "2"],
+    ["--attack", "sign_flip", "--adv-frac", "0.34", "--dp-clip", "1",
+     "--dp-sigma", "1", "--rounds", "2"]],
+    ids=lambda e: "-".join(a.strip("-") for a in e))
 def test_cli_new_rules_and_engine_print_reference_keys(capsys, extra):
     args = _tiny_args(clients=3) + extra
     want = jtrain.run_fl(jtrain.build_parser().parse_args(
@@ -258,6 +433,11 @@ def test_cli_new_rules_and_engine_print_reference_keys(capsys, extra):
     if "semi_async" in extra:
         assert 0.0 < printed["mean_participation"] <= 1.0
         assert printed["wan_MB"] > 0 and printed["fleet"] == want["fleet"]
+    for key in ("scenario", "rho", "fleet_size", "cohort_size", "attack",
+                "adv_frac", "n_adversaries", "dp_sigma", "dp_clip",
+                "dp_epsilon", "energy_budget_j", "events"):
+        if key in want:
+            assert printed[key] == want[key], key
 
 
 @pytest.mark.parametrize("bad", [["--method", "coalition", "--trim", "1"],
@@ -270,6 +450,26 @@ def test_cli_rejects_a_flag_the_method_does_not_take(bad):
         with pytest.raises(SystemExit) as exc:
             main(_tiny_args(clients=3) + bad)
         assert exc.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("bad", [["--fleet-size", "2"],
+                                 ["--fleet-size", "100", "--engine",
+                                  "semi_async"]])
+def test_cli_checks_the_fleet_size_before_loading_data(monkeypatch, bad):
+    from repro.data import synthetic as jsynthetic
+    from repro_torch.data import synthetic as tsynthetic
+
+    def no_data(*a, **k):
+        raise AssertionError("data loaded before --fleet-size was checked")
+
+    for mod in (jsynthetic, tsynthetic):
+        monkeypatch.setattr(mod, "digits", no_data)
+        monkeypatch.setattr(mod, "mnist_idx", no_data)
+    for main in (lambda a: jtrain.run_fl(jtrain.build_parser().parse_args(a)),
+                 lambda a: ttrain.main(a + ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            main(_tiny_args(clients=3) + bad)
+        assert "--fleet-size" in str(exc.value)
 
 
 def test_cli_without_card_exits_nonzero():

@@ -7,6 +7,14 @@ reference: its device tables carried over with ``carry.fleet_from_jax``,
 and its availability draws rebuilt from its key splits
 (``repro/sim/availability.py``) and injected.  Masks must be equal; clock
 and byte figures within rtol 1e-6, and exactly 0.0 on the ideal fleet.
+
+The scenarios are numpy on both sides: ``quantity_rank``, ``couple`` and
+every registered scenario on the reference's table (the port's
+``make_fleet`` replaced by the carried table for the test) must equal the
+reference exactly, permutation, ranks, index matrix and ``spearman``.
+The cohort sampler must return the reference's ids from the reference's
+Gumbel rows, and its hierarchical top-k (cells of 64) must equal flat
+top-k.
 """
 import jax
 import jax.numpy as jnp
@@ -15,8 +23,12 @@ import pytest
 import torch
 
 from repro import sim as jsim
+from repro.data import partition as jpartition
+from repro.data import synthetic
+from repro.sim import scenarios as jscenarios
 from repro_torch import carry
 from repro_torch import sim as tsim
+from repro_torch.sim import scenarios as tscenarios
 
 N = 16
 FLEETS = ("ideal", "uniform", "lognormal-edge", "cellular-flaky")
@@ -224,3 +236,126 @@ def test_round_stats_on_ideal_are_exact():
     assert sim_t.item() == 0.0
     assert wan.item() == 3 * 2 * MODEL_BYTES
     assert edge.item() == 10 * 2 * MODEL_BYTES
+
+
+def _labels(n=600):
+    return synthetic.digits(n, seed=0)[1]
+
+
+@pytest.mark.parametrize("regime", ["quantity", "dirichlet", "shard"])
+def test_quantity_rank_matches_reference(regime):
+    idx = jpartition.partition(regime, _labels(), 10, seed=1)
+    got = tsim.quantity_rank(idx)
+    np.testing.assert_array_equal(got, jscenarios.quantity_rank(idx))
+    assert sorted(got.tolist()) == list(range(10))
+
+
+@pytest.mark.parametrize("rho", [0.0, 0.3, 0.7, 1.0])
+def test_couple_matches_reference(rho):
+    rng = np.random.default_rng(int(rho * 10))
+    for n in (2, 7, 16):
+        cap, shard = rng.permutation(n), rng.permutation(n)
+        got = tscenarios.couple(cap, shard, rho)
+        np.testing.assert_array_equal(got,
+                                      jscenarios.couple(cap, shard, rho))
+        assert sorted(got.tolist()) == list(range(n))
+
+
+def test_scenario_registry_matches_reference():
+    assert tsim.available_scenarios() == jsim.available_scenarios()
+    with pytest.raises(ValueError, match="correlated-skew"):
+        tsim.make_scenario("independent", _labels(), 4, rho=0.5)
+    with pytest.raises(ValueError):
+        tsim.make_scenario("correlated-skew", _labels(), 4, rho=1.5)
+
+
+@pytest.mark.parametrize("name,regime,rho", [
+    ("correlated-skew", "dirichlet", 1.0), ("correlated-skew", "shard", 0.5),
+    ("correlated-quantity", "quantity", 1.0),
+    ("correlated-quantity", "quantity", 0.4), ("independent", "iid", 0.0)])
+def test_scenarios_match_reference_on_the_same_table(monkeypatch, name,
+                                                     regime, rho):
+    labels = _labels()
+    want = jsim.make_scenario(name, labels, 10, fleet="cellular-flaky",
+                              regime=regime, rho=rho, seed=2, sim_seed=3)
+    monkeypatch.setattr(tscenarios, "make_fleet", lambda fleet, n, seed:
+                        carry.fleet_from_jax(jsim.make_fleet(fleet, n,
+                                                             seed=seed)))
+    got = tsim.make_scenario(name, labels, 10, fleet="cellular-flaky",
+                             regime=regime, rho=rho, seed=2, sim_seed=3)
+    np.testing.assert_array_equal(got.index_matrix, want.index_matrix)
+    assert got.metadata == want.metadata
+    if rho == 1.0:
+        assert got.metadata["spearman"] >= 0.9
+
+
+def test_coupled_scenario_on_the_ports_table_ranks_its_own_fleet():
+    """On a sampled profile the port's table sets the permutation: rho = 1
+    still hands the weakest device the most skewed shard."""
+    labels = _labels()
+    scn = tsim.make_scenario("correlated-skew", labels, 10,
+                             fleet="cellular-flaky", regime="dirichlet",
+                             rho=1.0, seed=0, sim_seed=0)
+    cap = tsim.capability_rank(scn.fleet)
+    np.testing.assert_array_equal(cap, scn.metadata["capability_rank"])
+    assert scn.metadata["spearman"] >= 0.9
+    base = tsim.make_scenario("independent", labels, 10,
+                              fleet="cellular-flaky", regime="dirichlet",
+                              seed=0, sim_seed=0)
+    perm = scn.metadata["permutation"]
+    np.testing.assert_array_equal(scn.index_matrix,
+                                  base.index_matrix[perm])
+
+
+def _weights(n, seed=0):
+    w = np.random.default_rng(seed).uniform(0.05, 1.0, n).astype(np.float32)
+    w[::7] = 0.0                       # never sampled
+    return w
+
+
+@pytest.mark.parametrize("n,c,cell", [(1000, 8, 64), (1000, 8, 4096),
+                                      (4097, 16, 64), (300, 40, 32)])
+def test_sample_cohort_matches_reference(n, c, cell):
+    w = _weights(n, n)
+    key = jax.random.key(n + c)
+    gumbel = np.array(jax.random.gumbel(key, (n,), jnp.float32))
+    want = np.asarray(jsim.sample_cohort(key, jnp.asarray(w), c,
+                                         cell_size=cell))
+    got = tsim.sample_cohort(torch.from_numpy(w), c, gumbel, cell_size=cell)
+    assert got.dtype == torch.long and got.shape == (c,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(set(got.tolist())) == c and np.all(w[got.numpy()] > 0)
+    flat = tsim.sample_cohort(torch.from_numpy(w), c, gumbel, cell_size=n)
+    assert torch.equal(flat, got)
+
+
+def test_sample_cohorts_matches_reference_row_by_row():
+    n, c, steps = 2000, 10, 4
+    w = _weights(n, 1)
+    key = jax.random.key(3)
+    rows = np.stack([np.array(jax.random.gumbel(
+        jax.random.fold_in(key, r), (n,), jnp.float32)) for r in range(steps)])
+    want = np.asarray(jsim.sample_cohorts(key, jnp.asarray(w), steps, c,
+                                          cell_size=64))
+    got = tsim.sample_cohorts(torch.from_numpy(w), steps, c, gumbel=rows,
+                              cell_size=64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tsim.COHORT_STREAM == jsim.COHORT_STREAM
+    assert tsim.DEFAULT_CELL == 4096
+
+
+def test_hierarchical_cohorts_equal_flat_top_k():
+    n, c = 5000, 12
+    w = torch.from_numpy(_weights(n, 2))
+    hier = tsim.sample_cohorts(w, 3, c, cell_size=64,
+                               generator=torch.Generator().manual_seed(1))
+    flat = tsim.sample_cohorts(w, 3, c, cell_size=n,
+                               generator=torch.Generator().manual_seed(1))
+    assert torch.equal(hier, flat)
+    assert not torch.equal(hier[0], hier[1])    # rows are independent draws
+    with pytest.raises(ValueError):
+        tsim.sample_cohort(w, 0, torch.zeros(n))
+    with pytest.raises(ValueError):
+        tsim.sample_cohort(w, n + 1, torch.zeros(n))
+    with pytest.raises(ValueError):
+        tsim.sample_cohorts(w, 2, c)
