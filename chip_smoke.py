@@ -28,8 +28,10 @@ In order, it
      aggregation matrix of fractional masses: the ``semi_async`` engine's
      staleness weights ``(1 + tau)^-0.5``, tau in 0..4, normalised per
      coalition as ``aggregation_matrix`` does (phase c).  ``flash_attention``
-     at the reference's sweep in f32 and bf16, at the pretrain path's shape
-     and at ragged, longer and wider (Dh 96, 128) shapes in bf16, within the
+     at the reference's sweep in f32 and bf16, at the pretrain path's and
+     the serve path's shapes (the seamless encoder's (4, 16, 16, 960, 960,
+     64), non-causal) and at ragged, longer and wider (Dh 96, 128) shapes
+     in bf16, within the
      reference's rtol = atol (2e-4 f32, 2e-2 bf16), and its gradient
      through ``ops.flash_attention`` within 2e-3 of the plain version's;
   4. holds whole rounds on the ``cuda`` backend against the ``stream``
@@ -47,7 +49,7 @@ In order, it
      written back before the launch), and the fixed cost of one step of
      the register sweep with and without its last-CTA sum
      (``flash_attention`` in bf16
-     at the pretrain path's shape, against
+     at the pretrain path's and the serve path's shapes, against
      ``F.scaled_dot_product_attention``, and at S = 4096 with window 1024,
      each with the wrapper's host time beside the kernel's device time);
   6. runs ``repro_torch.launch.train --mode fl`` at its defaults with
@@ -125,6 +127,28 @@ In order, it
       peak memory.  Then one forward of the full model with the kernel and
       without (losses within 1e-2 relative), and one pretrain step traced
       with torch.profiler (busy share, top kernels);
+  10a. runs five serve phases, ``repro_torch.launch.serve --mode lm
+      --full --arch A`` at the CLI's other defaults (batch 4, prompt 32, 16
+      new tokens, greedy), one full-width bf16 model at a time, freed
+      before the next: falcon-mamba-7b (the SSM state), hymba-1.5b (KV
+      cache and SSM state), seamless-m4t-large-v2 with ``--flash`` (the
+      encoder through the kernel, non-causal; cross-attention on the
+      cached memory), phi-3-vision-4.2b (the 576-token modal prefix in the
+      cache) and moonshot-v1-16b-a3b (64 experts, top-6), each with the
+      counters set to 0 just before: prints the card, ``prefill_s``,
+      ``decode_s_per_tok``, the peak memory, the launches, the first
+      tokens and a decode step's byte bound, and traces 4 decode steps
+      with torch.profiler (busy share, kernels a token); gates (a) tokens
+      in the vocabulary and every logit finite, (b) ``flash_attention``
+      once per encoder layer in the seamless phase (24) and never in the
+      others, (c) prefill S - 1 + one decode step against the full
+      forward's last logits (MoE at capacity 8.0), (d) the seamless
+      encoder memory and prefill logits through the kernel against the
+      plain attention's; (c) and (d) within 5e-2 of max in bf16 as served
+      (beside them the forward run a row at a time, and the library's
+      SDPA in the kernel's place) and within 1e-4 with the same weights
+      cast to f32 and an f32 cache (moonshot: its leading layers that fit
+      in 40 GiB of f32);
   11. prints the card again, one JSON line with every kernel's numbers (a
       line for each kernel at the shape its path gives it, and
       ``sq_dists_to_points``, ``segment_sum`` and ``pairwise_sq_dists``
@@ -132,7 +156,9 @@ In order, it
       line's launches are those of the path that gives the kernel that
       shape, at the line's route and D: the main path, the sketch path, the
       composed round at the main width and at 8M, the pairwise calls at
-      the main width and at 8M, the pretrain path; a line with none fails),
+      the main width and at 8M, the pretrain path, and ``flash_attention``
+      also at the serve path's encoder shape with the seamless phase's
+      launches; a line with none fails),
       and last
       ``{"ok": true, "device": {...}}``.
 
@@ -241,11 +267,14 @@ FLASH_SWEEP = ((1, 4, 1, 128, 128, 64, True, None),
                (1, 4, 2, 64, 192, 64, True, None))
 #: the long windowed hymba shape that is timed beside the path's
 FLASH_LONG = (1, 25, 5, 4096, 4096, 64, True, 1024)
+#: the serve path's shape: seamless-m4t-large-v2's encoder (16 heads of 64
+#: over the stub's 960 frames, batch 4), non-causal, once a layer a prefill
+FLASH_ENCODER = (4, 16, 16, 960, 960, 64, False, None)
 #: the path's shape, the long windowed hymba shape, ragged q-tiles against a
 #: longer timeline and the Dh 96 / 128 archs' shapes, bf16: (B, Hq, Hkv, Sq,
 #: Skv, Dh, causal, window)
 FLASH_BF16 = (FLASH_PATH, (10, 25, 5, 128, 128, 64, True, 1024),
-              FLASH_LONG, (2, 8, 2, 17, 300, 64, True, None),
+              FLASH_LONG, FLASH_ENCODER, (2, 8, 2, 17, 300, 64, True, None),
               (1, 32, 32, 704, 704, 96, True, None),
               (1, 36, 4, 2048, 2048, 128, True, None))
 #: kernel vs plain attention: the reference's rtol = atol, by dtype
@@ -254,6 +283,31 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 FLASH_GRAD_TOL = 2e-3
 #: the losses of one full-size forward with and without the kernel
 FORWARD_RTOL = 1e-2
+#: the serve phases: ``serve --mode lm --full --arch A`` at the CLI's other
+#: defaults (batch 4, prompt 32, 16 new tokens, greedy, seed 0), with the
+#: CLI's extra flags, one full-width model at a time
+SERVE_PHASES = (("falcon-mamba-7b", ()), ("hymba-1.5b", ()),
+                ("seamless-m4t-large-v2", ("--flash",)),
+                ("phi-3-vision-4.2b", ()), ("moonshot-v1-16b-a3b", ()))
+#: the serve gates' bounds, max abs error over the max, by dtype: (c)
+#: decode against forward (prefill S - 1 tokens + one decode step against
+#: the full forward's last logits) and (d) the encoder through the kernel
+#: against the plain attention (memory and prefill logits).  In bf16, as
+#: served: bf16 rounding, amplified over 24-64 random layers, moves the
+#: last logits by 1e-2-4e-2 of their max between the (B·S)- and (B)-row
+#: GEMMs (and by more when the same forward runs its rows one at a time),
+#: and the encoder memory by 2e-2 under the library's SDPA in place of the
+#: plain attention (both printed); in f32, the same weights cast, with an
+#: f32 cache: the cache path and the kernel alone (PERF.md §6)
+SERVE_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}
+#: f32 bytes of the model the f32 check may hold: the served model's
+#: leading layers that fit (all of them but moonshot's)
+SERVE_F32_BYTES = 40 * 2**30
+#: decode steps traced with torch.profiler in each serve phase
+DECODE_TRACED = 4
+#: the MoE capacity factor of that check (tests/test_archs.py:36), so that
+#: no routing drop can differ between T = B·S and T = B
+SERVE_CHECK_CF = 8.0
 
 
 def card_line() -> str:
@@ -816,12 +870,13 @@ def flash_inputs(shape, dtype, seed: int = 0):
                          (b, hkv, skv, dh))]
 
 
-def check_flash() -> float:
+def check_flash() -> dict:
     """Phase 3, flash_attention against the plain attention: the
-    reference's sweep in f32 and bf16, and the path's and the larger archs'
+    reference's sweep in f32 and bf16, and the paths' and the larger archs'
     shapes in bf16, within the reference's rtol = atol; then the gradient
     through ops.flash_attention against the plain version's.  Returns the
-    max abs error at the pretrain path's shape."""
+    max abs error at the pretrain path's and the serve path's (the
+    encoder's) shapes, by shape."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -829,7 +884,7 @@ def check_flash() -> float:
 
     cases = [(c, dn) for dn in ("float32", "bfloat16") for c in FLASH_SWEEP]
     cases += [(c, "bfloat16") for c in FLASH_BF16]
-    path_err = None
+    path_errs = {}
     for shape, dname in cases:
         causal, window = shape[6:]
         q, k, v = flash_inputs(shape, getattr(torch, dname))
@@ -850,8 +905,8 @@ def check_flash() -> float:
                  f"{shape} {dname}")
         if moved != 1:
             fail(f"flash_attention's launch counter moved by {moved}, not 1")
-        if shape == FLASH_PATH and dname == "bfloat16":
-            path_err = err
+        if shape in (FLASH_PATH, FLASH_ENCODER) and dname == "bfloat16":
+            path_errs[shape] = err
         del q, k, v, got, want, diff
     for shape in ((1, 4, 2, 64, 64, 64, True, None), FLASH_PATH):
         causal, window = shape[6:]
@@ -870,7 +925,7 @@ def check_flash() -> float:
             fail(f"the gradient through ops.flash_attention disagrees with "
                  f"the plain version's at {shape}")
     torch.cuda.empty_cache()
-    return path_err
+    return path_errs
 
 
 def time_flash() -> dict:
@@ -878,8 +933,9 @@ def time_flash() -> dict:
     plain version and the library yardstick F.scaled_dot_product_attention
     (timed here, never called by the port), beside the bound: q, k, v read
     and out written once over the memory rate, or 4 Dh operations per kept
-    (query, key) pair over the bf16 tensor-core peak.  Also the long
-    windowed hymba shape, printed only."""
+    (query, key) pair over the bf16 tensor-core peak.  Also the serve
+    path's encoder shape (non-causal), and the long windowed hymba shape,
+    printed only.  Returns the rows by shape."""
     import torch
     import torch.nn.functional as F
 
@@ -887,7 +943,7 @@ def time_flash() -> dict:
     from repro_torch.kernels import ref
 
     rows = {}
-    for shape in (FLASH_PATH, FLASH_LONG):
+    for shape in (FLASH_PATH, FLASH_ENCODER, FLASH_LONG):
         b, hq, hkv, sq, skv, dh, causal, window = shape
         q, k, v = flash_inputs(shape, torch.bfloat16)
         mask = ref.attention_mask(sq, skv, causal, window, "cuda")
@@ -914,7 +970,7 @@ def time_flash() -> dict:
               f"limit of back-to-back calls")
         del q, k, v
     torch.cuda.empty_cache()
-    return rows[FLASH_PATH]
+    return rows
 
 
 def report_rounds(out: dict, label: str, wall: float, launches: dict,
@@ -1486,6 +1542,283 @@ def profile_pretrain_step(model, batch) -> None:
               f"{e.count:6d}x  {e.key[:70]}")
 
 
+def with_config(model, **changes) -> None:
+    """Replace fields of a model's config and of every block's (each module
+    keeps its own reference to its config)."""
+    import dataclasses
+
+    for module in model.modules():
+        if "cfg" in vars(module):
+            module.cfg = dataclasses.replace(module.cfg, **changes)
+
+
+def decode_bytes(model, batch: int, cache_len: int) -> int:
+    """The bytes one decode step must read once: the parameters it touches
+    (the decoder's blocks, the final norm and the head; not the encoder,
+    whose memory is cached, nor a VLM's projector, whose prefix is cached,
+    nor an untied embedding table, of which it gathers B rows) and the
+    whole cache (K/V timelines, SSM state, encoder memory)."""
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    total = 0
+    for name, p in model.named_parameters():
+        if (name.startswith("encoder.") or name == "proj"
+                or (name == "embed" and not cfg.tie_embeddings)):
+            continue
+        total += p.numel() * p.element_size()
+    cache = tf.init_cache(cfg, batch, cache_len, device="meta")
+    return total + sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def last_logits(model, batch: dict):
+    """The full forward's last logits in f32."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    with torch.no_grad():
+        return tf.forward(model, batch)[0][:, -1].float()
+
+
+def profile_decode(model, batch: dict, flash: bool) -> dict:
+    """Where a decode step's time goes: prefill the phase's batch, one
+    decode step as warm-up, then DECODE_TRACED steps traced with
+    torch.profiler: the device's busy share, its kernels a token and the
+    top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    prefix = cfg.n_modal_tokens if (cfg.modality and not cfg.enc_dec) else 0
+    layers.set_flash_kernel(flash)
+    try:
+        with torch.no_grad():
+            cache = tf.init_cache(cfg, tokens.shape[0],
+                                  prefix + tokens.shape[1] + 1 + DECODE_TRACED,
+                                  device=tokens.device)
+            logits, cache = tf.prefill(model, batch, cache)
+            tok = logits.argmax(-1)
+            logits, cache = tf.decode_step(model, tok, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(DECODE_TRACED):
+                    logits, cache = tf.decode_step(model, logits.argmax(-1),
+                                                   cache)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        layers.set_flash_kernel(False)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels) / DECODE_TRACED
+    print(f"profile serve {cfg.name} decode: {DECODE_TRACED} steps in "
+          f"{wall:.4f} s traced, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.1f}%), {launches:.0f} device kernels a "
+          f"token")
+    for e in kernels[:5]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:70]}")
+    return {"busy": busy / wall, "kernels": launches}
+
+
+def check_decode(model, batch: dict, flash: bool) -> float:
+    """Gate (c): prefill S - 1 tokens (after any modal prefix) and one
+    decode step against the full forward's last logits, in the model's
+    dtype with a cache of that dtype, with the flash switch as the phase
+    served (MoE at capacity SERVE_CHECK_CF, then put back).  Prints beside
+    it the same forward run one row at a time against the batched one (the
+    floor that bf16 rounding alone sets).  Returns the max abs error over
+    max |logit|; fails above SERVE_RTOL for the dtype or on a non-finite
+    logit."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    prefix = cfg.n_modal_tokens if (cfg.modality and not cfg.enc_dec) else 0
+    if cfg.moe:
+        with_config(model, capacity_factor=SERVE_CHECK_CF)
+    layers.set_flash_kernel(flash)
+    try:
+        last = last_logits(model, batch)
+        rows = torch.cat([last_logits(model, {k: v[i:i + 1]
+                                              for k, v in batch.items()})
+                          for i in range(b)])
+        with torch.no_grad():
+            cache = tf.init_cache(cfg, b, prefix + s + 1,
+                                  device=tokens.device)
+            _, cache = tf.prefill(model, {**batch, "tokens": tokens[:, :-1]},
+                                  cache)
+            step = tf.decode_step(model, tokens[:, -1], cache)[0].float()
+    finally:
+        layers.set_flash_kernel(False)
+        if cfg.moe:
+            with_config(model, capacity_factor=cfg.capacity_factor)
+    bound = SERVE_RTOL[cfg.dtype]
+    _, ratio = rel_err(step, last)
+    _, floor = rel_err(rows, last)
+    finite = bool(torch.isfinite(last).all() and torch.isfinite(step).all())
+    print(f"serve {cfg.name}: decode against forward, {cfg.dtype}, "
+          f"{cfg.n_layers} layers (prefill {s - 1} + 1 decode"
+          f"{f', capacity {SERVE_CHECK_CF}' if cfg.moe else ''}): max abs err "
+          f"/ max |logit| {ratio:.4e} (bound {bound:.0e}); the forward one "
+          f"row at a time against batched {floor:.4e}; argmax equal "
+          f"{bool(torch.equal(step.argmax(-1), last.argmax(-1)))}")
+    if not (finite and ratio <= bound):
+        fail(f"serve {cfg.name}: decode disagrees with the full forward in "
+             f"{cfg.dtype} or is not finite")
+    return ratio
+
+
+def check_decode_f32(model, batch: dict, flash: bool) -> float:
+    """Gate (c) in f32: the served model's leading layers that fit in
+    SERVE_F32_BYTES of f32 (the later ones dropped first), cast to f32 in
+    place, through :func:`check_decode` with an f32 cache.  The model is
+    left in f32: only :func:`check_encoder_flash` uses it after this."""
+    cfg = model.cfg
+    per_layer = 4 * sum(p.numel() for p in model.layers[0].parameters())
+    rest = 4 * sum(p.numel() for name, p in model.named_parameters()
+                   if not name.startswith("layers."))
+    keep = min(cfg.n_layers, int((SERVE_F32_BYTES - rest) // per_layer))
+    del model.layers[keep:]
+    with_config(model, n_layers=keep, dtype="float32")
+    model.float()
+    return check_decode(model, batch, flash)
+
+
+def check_encoder_flash(model, batch: dict) -> dict:
+    """Gate (d): the encoder-decoder's encoder memory and prefill logits
+    through the flash kernel against the plain attention's, each within
+    SERVE_RTOL of its max for the model's dtype.  Prints beside them the
+    library's F.scaled_dot_product_attention in the kernel's place (set
+    into ``ops`` for the call only): its own distance from the plain
+    attention.  Returns the kernel's two ratios."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, layers
+    from repro_torch.models import transformer as tf
+
+    def library(q, k, v, *, causal, window, scale):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=scale, enable_gqa=True)
+
+    cfg = model.cfg
+    b, s = batch["tokens"].shape
+    kernel = ops.flash_attention
+    runs = {}
+    try:
+        with torch.no_grad():
+            for how in ("kernel", "plain", "library"):
+                layers.set_flash_kernel(how != "plain")
+                ops.flash_attention = library if how == "library" else kernel
+                cache = tf.init_cache(cfg, b, s + 1,
+                                      device=batch["tokens"].device)
+                runs[how] = (encdec.encode(model, batch["modal"]).float(),
+                             tf.prefill(model, batch, cache)[0].float())
+    finally:
+        ops.flash_attention = kernel
+        layers.set_flash_kernel(False)
+    bound = SERVE_RTOL[cfg.dtype]
+    ratios = {}
+    for i, label in enumerate(("memory", "prefill logits")):
+        _, rel = rel_err(runs["kernel"][i], runs["plain"][i])
+        _, lib = rel_err(runs["library"][i], runs["plain"][i])
+        ratios[label] = rel
+        print(f"serve {cfg.name}: {label} through the kernel against the "
+              f"plain attention, {cfg.dtype}: max abs err / max {rel:.4e} "
+              f"(bound {bound:.0e}); the library's SDPA in its place "
+              f"{lib:.4e}")
+        if not (rel <= bound and torch.isfinite(runs["kernel"][i]).all()):
+            fail(f"serve {cfg.name}: the {label} through the flash kernel "
+                 f"disagree with the plain attention's in {cfg.dtype}")
+    return ratios
+
+
+def run_serve_phase(arch: str, extra) -> dict:
+    """A serve phase: ``serve --mode lm --full --arch A`` through the
+    serving entry point, the counters set to 0 just before and the peak
+    memory counted from there.  Gates: (a) tokens in the vocabulary and
+    every logit finite; (b) flash_attention once per encoder layer under
+    --flash (the encoder-decoder's prefill), no kernel otherwise; (c) decode
+    against forward; (d) for the encoder-decoder, the kernel against the
+    plain attention; (c) and (d) in bf16 as served, then again with the
+    served weights cast to f32 (an f32 cache).  Prints the card, the
+    times, the peak memory, the launches, the first tokens and the decode
+    step's byte bound, and traces a few decode steps; frees the model.
+    Returns the phase's figures."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    argv = ["--mode", "lm", "--full", "--arch", arch, *extra]
+    args = serve.build_parser().parse_args(argv)
+    label = f"serve {' '.join(argv)}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)            # raises on a non-finite logit
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model, batch, tokens = out["model"], out["batch"], out["tokens"]
+    cfg = model.cfg
+    if not (out["logits_finite"] and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab):
+        fail(f"{label}: tokens outside the vocabulary or non-finite logits")
+    expect_launches(label, launches, {"flash_attention": cfg.n_enc_layers}
+                    if args.flash else {})
+    prefix = cfg.n_modal_tokens if (cfg.modality and not cfg.enc_dec) else 0
+    cache_len = prefix + args.prompt_len + args.gen
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    nbytes = decode_bytes(model, args.batch, cache_len)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(card_line())
+    print(f"{label}: {wall:.1f} s with the init; {cfg.n_params():,} "
+          f"parameters ({weights / 2**30:.2f} GiB); prefill_s "
+          f"{out['prefill_s']!r}, decode_s_per_tok "
+          f"{out['decode_s_per_tok']!r}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}; first tokens {tokens[0].tolist()}; a "
+          f"decode step reads {nbytes / 1e9:.3f} GB: bound {bound_ms:.4f} ms "
+          f"a token ({100 * bound_ms / 1e3 / out['decode_s_per_tok']:.1f}% "
+          f"of the measured)")
+    trace = profile_decode(model, batch, args.flash)
+    ratio = check_decode(model, batch, args.flash)
+    if cfg.enc_dec:
+        check_encoder_flash(model, batch)
+    ratio_f32 = check_decode_f32(model, batch, args.flash)
+    if cfg.enc_dec:
+        check_encoder_flash(model, batch)
+    result = {"arch": arch, "prefill_s": out["prefill_s"],
+              "decode_s_per_tok": out["decode_s_per_tok"], "peak": peak,
+              "decode_bytes": nbytes, "bound_ms": bound_ms,
+              "decode_ratio": ratio, "decode_ratio_f32": ratio_f32,
+              "launches": launches, **trace}
+    del model, batch, tokens, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def event_ms(fn, reps: int = 5) -> float:
     """Median ms of ``fn`` on the card by CUDA events, after one warm-up."""
     import torch
@@ -1773,10 +2106,11 @@ def main() -> int:
 
     errs = check_kernels()
     dist_errs = check_dist_kernels()
-    flash_err = check_flash()
+    flash_errs = check_flash()
     composed_routes = check_rounds()
     times = time_kernels()
-    times["flash_attention"] = time_flash()
+    flash_rows = time_flash()
+    times["flash_attention"] = flash_rows[FLASH_PATH]
     launches = run_main_path()
     run_fedavg_path()
     run_straggler_path()
@@ -1794,9 +2128,20 @@ def main() -> int:
     check_forward(model, batch)
     profile_pretrain_step(model, batch)
     del model, batch
+    serves = {arch: run_serve_phase(arch, extra)
+              for arch, extra in SERVE_PHASES}
+    for arch, r in serves.items():
+        print(f"serve summary {arch}: prefill_s {r['prefill_s']!r}, "
+              f"decode_s_per_tok {r['decode_s_per_tok']!r}, peak "
+              f"{r['peak'] / 2**30:.2f} GiB, decode bound {r['bound_ms']:.4f} "
+              f"ms, decode/forward {r['decode_ratio']:.3e} (bf16), "
+              f"{r['decode_ratio_f32']:.3e} (f32), traced decode busy "
+              f"{100 * r['busy']:.1f}% with {r['kernels']:.0f} kernels a "
+              f"token, launches "
+              f"{r['launches']}")
 
     n, k, d = MAIN
-    errs["flash_attention"] = flash_err
+    errs["flash_attention"] = flash_errs[FLASH_PATH]
     errs.update({
         "sq_dists_to_points": dist_errs[("sq_dists_to_points", n, k,
                                          SKETCH_DIM)],
@@ -1849,6 +2194,11 @@ def main() -> int:
                   on_path("pairwise_sq_dists", big["pairwise_sq_dists"],
                           BIG_D, f"pairwise N={n} D={BIG_D}",
                           big["pairwise routes"])))
+    encoder_arch = next(a for a, extra in SERVE_PHASES if "--flash" in extra)
+    lines.append(("flash_attention", f"{FLASH_ENCODER[:6]} bf16 non-causal",
+                  flash_rows[FLASH_ENCODER], flash_errs[FLASH_ENCODER],
+                  (f"serve path ({encoder_arch} --flash)",
+                   serves[encoder_arch]["launches"])))
     kernels = []
     for name, shape, row, err, (path, count) in lines:
         if isinstance(count, dict):

@@ -10,8 +10,11 @@ The LM stack (``repro.models.transformer``) stacks its layers on a leading
 L axis; the port's :class:`~repro_torch.models.transformer.Transformer`
 keeps a module per layer.  :func:`transformer_from_jax` and
 :func:`transformer_to_jax` unstack and restack them and transpose the dense
-weights between (in, out) and (out, in).  All four take and give numpy
-arrays (any array that ``numpy.asarray`` accepts on the way in).
+weights between (in, out) and (out, in); the MoE expert stacks keep their
+(E, d_in, d_out) layout.  :func:`cache_from_jax` and :func:`cache_to_jax`
+move a decode cache, whose layout is the same on both sides.  All take and
+give numpy arrays (any array that ``numpy.asarray`` accepts on the way
+in).
 
 :func:`fleet_from_jax` carries a reference device table over, so the
 ``semi_async`` parity tests run both engines on the same fleet (the port
@@ -29,7 +32,10 @@ from repro_torch.sim.devices import DeviceFleet
 
 #: the LM stack's dense weights: (in, out) in the reference, (out, in) here
 DENSE = frozenset({"wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wi",
-                   "in_proj", "x_proj", "dt_proj", "out_proj", "lm_head"})
+                   "in_proj", "x_proj", "dt_proj", "out_proj", "lm_head",
+                   "proj", "router"})
+#: the MoE expert stacks, (E, d_in, d_out) on both sides
+EXPERTS = frozenset({"wi_gate", "wi_up", "wo"})
 
 
 def params_from_jax(tree, layout=cnn.REF_LAYOUT,
@@ -63,31 +69,59 @@ def params_to_jax(params: dict[str, torch.Tensor],
     return tree
 
 
-def _to_port(name: str, leaf) -> torch.Tensor:
+def _dense(sub: str, name: str) -> bool:
+    return name in DENSE and not (sub == "moe" and name in EXPERTS)
+
+
+def _to_port(name: str, leaf, sub: str = "") -> torch.Tensor:
     t = torch.from_numpy(np.array(leaf))
-    return t.T.contiguous() if name in DENSE else t
+    return t.T.contiguous() if _dense(sub, name) else t
 
 
-def _to_ref(name: str, t: torch.Tensor) -> np.ndarray:
+def _to_ref(name: str, t: torch.Tensor, sub: str = "") -> np.ndarray:
     t = t.detach().cpu()
-    return (t.T if name in DENSE else t).contiguous().numpy()
+    return (t.T if _dense(sub, name) else t).contiguous().numpy()
+
+
+def _layers_from_jax(stacked: dict, n: int, device) -> list[dict]:
+    """Stacked (leading L) sub-layer trees -> one dict of tensors a layer."""
+    return [{sub: {k: _to_port(k, v[i], sub).to(device)
+                   for k, v in leaves.items()}
+             for sub, leaves in stacked.items()}
+            for i in range(n)]
+
+
+def _layers_to_jax(blocks) -> dict:
+    """A ModuleList of blocks -> stacked (leading L) sub-layer trees."""
+    return {sub: {k: np.stack([_to_ref(k, getattr(block, sub)[k], sub)
+                               for block in blocks])
+                  for k in leaves}
+            for sub, leaves in blocks[0].named_children()}
 
 
 def transformer_from_jax(tree, cfg: ModelConfig,
                          device: str | torch.device = "cpu") -> tf.Transformer:
     """Reference LM parameter tree (layers stacked on axis 0) -> the port's
-    model on ``device``."""
+    model on ``device``: the embedding, final norm and head, the blocks
+    (MoE experts and router, cross-attention included), a VLM's projector
+    and an encoder-decoder's encoder."""
     def move(name, leaf):
         return _to_port(name, leaf).to(device)
 
-    layers = [{sub: {k: move(k, v[i]) for k, v in leaves.items()}
-               for sub, leaves in tree["layers"].items()}
-              for i in range(cfg.n_layers)]
     params = {"embed": move("embed", tree["embed"]),
               "ln_f": {"scale": move("scale", tree["ln_f"]["scale"])},
-              "layers": layers}
-    if "lm_head" in tree:
-        params["lm_head"] = move("lm_head", tree["lm_head"])
+              "layers": _layers_from_jax(tree["layers"], cfg.n_layers,
+                                         device)}
+    for name in ("lm_head", "proj"):
+        if name in tree:
+            params[name] = move(name, tree[name])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "proj": move("proj", enc["proj"]),
+            "ln_f": {"scale": move("scale", enc["ln_f"]["scale"])},
+            "layers": _layers_from_jax(enc["layers"], cfg.n_enc_layers,
+                                       device)}
     return tf.Transformer(cfg, params)
 
 
@@ -95,15 +129,31 @@ def transformer_to_jax(model: tf.Transformer) -> dict:
     """The port's model -> reference LM parameter tree of numpy arrays."""
     tree: dict = {"embed": _to_ref("embed", model.embed),
                   "ln_f": {"scale": _to_ref("scale", model.ln_f["scale"])},
-                  "layers": {}}
-    for sub, leaves in model.layers[0].named_children():
-        tree["layers"][sub] = {
-            k: np.stack([_to_ref(k, getattr(block, sub)[k])
-                         for block in model.layers])
-            for k in leaves}
-    if hasattr(model, "lm_head"):
-        tree["lm_head"] = _to_ref("lm_head", model.lm_head)
+                  "layers": _layers_to_jax(model.layers)}
+    for name in ("lm_head", "proj"):
+        if hasattr(model, name):
+            tree[name] = _to_ref(name, getattr(model, name))
+    if hasattr(model, "encoder"):
+        enc = model.encoder
+        tree["encoder"] = {
+            "proj": _to_ref("proj", enc.proj),
+            "ln_f": {"scale": _to_ref("scale", enc.ln_f["scale"])},
+            "layers": _layers_to_jax(enc.layers)}
     return tree
+
+
+def cache_from_jax(cache, device: str | torch.device = "cpu") -> dict:
+    """The reference's decode cache (``k``, ``v``, ``conv``, ``h``,
+    ``memory``, ``index``) -> the port's dict of tensors; the layouts are
+    the same, ``index`` a 0-d int32 tensor."""
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in cache.items()}
+
+
+def cache_to_jax(cache: dict) -> dict:
+    """The port's decode cache -> the reference's, as numpy arrays (copies:
+    decoding updates the port's tensors in place)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in cache.items()}
 
 
 def fleet_from_jax(fleet) -> DeviceFleet:

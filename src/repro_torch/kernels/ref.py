@@ -68,10 +68,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_mask(sq: int, skv: int, causal: bool, window: int | None,
-                   device) -> torch.Tensor:
+                   device, kv_len: torch.Tensor | None = None) -> torch.Tensor:
     """(Sq, Skv) bool: which keys each query sees, queries occupying the
-    last Sq slots of the Skv timeline."""
-    qpos = torch.arange(sq, device=device) + (skv - sq)
+    last Sq slots of the Skv timeline, or with ``kv_len`` (a 0-d tensor:
+    a partly filled cache) the Sq slots before position ``kv_len``."""
+    end = skv if kv_len is None else kv_len
+    qpos = torch.arange(sq, device=device) + (end - sq)
     kpos = torch.arange(skv, device=device)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:

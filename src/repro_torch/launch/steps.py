@@ -1,9 +1,10 @@
 """Step functions of the LM path (``repro.launch.steps``).
 
-  make_train_step — loss, gradient, and an SGD-momentum or Adam update
+  make_train_step   — loss, gradient, and an SGD-momentum or Adam update
+  make_prefill_step — prompt -> filled cache + last-position logits
+  make_decode_step  — one new token against the cache
 
-The prefill, decode and FL-round steps wait for the serving and
-sharding slices (ROADMAP queue A.4 and A.6).
+The FL-round step waits for the sharding slice (ROADMAP queue A.6).
 """
 from __future__ import annotations
 
@@ -34,3 +35,19 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
         return loss.detach()
 
     return train_step, opt
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """``prefill_step(model, batch, cache) -> (logits, cache)``."""
+    def prefill_step(model: tf.Transformer, batch: dict, cache: dict):
+        return tf.prefill(model, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """``decode_step(model, token, cache) -> (logits, cache)``."""
+    def decode_step(model: tf.Transformer, token: torch.Tensor, cache: dict):
+        return tf.decode_step(model, token, cache)
+
+    return decode_step

@@ -1,4 +1,5 @@
-"""Functional NN layers: norms, RoPE, GQA attention (full / windowed), MLPs.
+"""Functional NN layers: norms, RoPE, GQA attention (full / windowed / cross
+/ cached decode), MLPs.
 
 Every layer is an ``init(generator, ...) -> params`` / ``apply(params, x,
 ...)`` pair over dicts of tensors, as in ``repro.models.layers``; the
@@ -6,9 +7,10 @@ modules of :mod:`repro_torch.models.transformer` hold the dicts.  Dense
 weights are (out, in), PyTorch's layout, applied with ``F.linear``; the
 reference keeps them (in, out), and :mod:`repro_torch.carry` transposes.
 
-Attention here is the path without a cache: training and full-sequence
-forward.  The cache branch and cross-attention wait for the serving slice
-(ROADMAP queue A.4).
+The cache-free full-sequence call goes through the flash kernel when
+:data:`USE_FLASH_KERNEL` is set; cached and cross attention stay plain
+torch on every device, as the reference computes them in XLA outside its
+Pallas kernel.  A cache is updated in place.
 """
 from __future__ import annotations
 
@@ -120,46 +122,98 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def _sdpa(q, k, v, *, causal: bool, window: Optional[int],
-          scale: float) -> torch.Tensor:
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int], scale: float,
+          kv_len: Optional[torch.Tensor] = None,
+          valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain scaled-dot-product attention with GQA broadcast, softmax in
     f32.  q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh); queries sit at the
-    end of the K/V timeline."""
+    end of the K/V timeline.  ``kv_len``: the number of valid cache entries
+    (a 0-d tensor; decode with a partly filled cache), the queries ending
+    there.  ``valid_mask``: an explicit (Skv,) slot-validity mask (a ring
+    buffer, whose slot order is not position order)."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     qf = q.float().reshape(b, hkv, group, sq, dh)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
-    mask = ref.attention_mask(sq, skv, causal, window, q.device)
+    if valid_mask is not None:
+        mask = valid_mask[None, :].expand(sq, skv)
+    else:
+        mask = ref.attention_mask(sq, skv, causal, window, q.device, kv_len)
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, hq, sq, dh).to(q.dtype)
 
 
+def _write(buf: torch.Tensor, new: torch.Tensor,
+           start: torch.Tensor) -> None:
+    """Write ``new`` (B, H, S, Dh) into ``buf`` (B, H, S_max, Dh) at slots
+    ``start`` .. ``start`` + S - 1 along axis 2, in place (``start`` a 0-d
+    tensor: no host read).  The slots must lie inside ``buf``."""
+    slots = start + torch.arange(new.shape[2], device=buf.device)
+    buf.index_copy_(2, slots, new.to(buf.dtype))
+
+
 def attention_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                    positions: torch.Tensor, causal: bool = True,
-                    use_rope: bool = True) -> torch.Tensor:
-    """GQA self-attention over x: (B, S, d), no cache (training / full
-    forward).  Through the flash kernel when :data:`USE_FLASH_KERNEL` is
-    set, else through :func:`_sdpa`."""
+                    positions: torch.Tensor,
+                    cache: Optional[dict] = None,
+                    cache_index: Optional[torch.Tensor] = None,
+                    memory: Optional[torch.Tensor] = None,
+                    causal: bool = True, use_rope: bool = True
+                    ) -> tuple[torch.Tensor, Optional[dict]]:
+    """GQA attention over x: (B, S, d).  Returns (out, cache).
+
+    Modes:
+      * training / prefill without a cache: ``cache=None``, full
+        self-attention, through the flash kernel when
+        :data:`USE_FLASH_KERNEL` is set, else :func:`_sdpa`;
+      * decode: ``cache={'k', 'v'}`` (B, Hkv, S_max, Dh) and
+        ``cache_index`` (a 0-d integer tensor) the number of tokens already
+        cached; x holds the new token(s), whose K/V are written into the
+        cache in place.  A cache of ``cfg.window`` slots is a ring buffer:
+        slot = index mod window, the keys keep RoPE at their absolute
+        positions, and an explicit validity mask stands for the window
+        (a write must not wrap: one token a decode step, and a prompt
+        that fits the window);
+      * cross-attention: ``memory`` (B, S_enc, d) supplies K/V (no cache,
+        no rope, no mask).
+    """
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     scale = dh ** -0.5
-    q = F.linear(x, params["wq"], params.get("bq"))
-    k = F.linear(x, params["wk"], params.get("bk"))
-    v = F.linear(x, params["wv"], params.get("bv"))
-    q = _split_heads(q, hq)
-    k = _split_heads(k, hkv)
-    v = _split_heads(v, hkv)
+    kv_in = memory if memory is not None else x
+    q = _split_heads(F.linear(x, params["wq"], params.get("bq")), hq)
+    k = _split_heads(F.linear(kv_in, params["wk"], params.get("bk")), hkv)
+    v = _split_heads(F.linear(kv_in, params["wv"], params.get("bv")), hkv)
+    if memory is not None:
+        out = _sdpa(q, k, v, causal=False, window=None, scale=scale)
+        return F.linear(_merge_heads(out), params["wo"]), None
     if use_rope:
         q = rope(q, positions[:, None, :], cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, positions[:, None, :], cfg.rope_theta, cfg.rope_fraction)
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        size, s = ck.shape[2], x.shape[1]
+        if cfg.window is not None and size == cfg.window:     # ring buffer
+            slot = torch.remainder(cache_index, size)
+            _write(ck, k, slot)
+            _write(cv, v, slot)
+            valid = (torch.arange(size, device=x.device)
+                     < torch.clamp(cache_index + s, max=size))
+            out = _sdpa(q, ck, cv, causal=False, window=None, scale=scale,
+                        valid_mask=valid)
+        else:
+            _write(ck, k, cache_index)
+            _write(cv, v, cache_index)
+            out = _sdpa(q, ck, cv, causal=True, window=cfg.window,
+                        scale=scale, kv_len=cache_index + s)
+        return F.linear(_merge_heads(out), params["wo"]), {"k": ck, "v": cv}
     if USE_FLASH_KERNEL:
         out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                                   scale=scale)
     else:
         out = _sdpa(q, k, v, causal=causal, window=cfg.window, scale=scale)
-    return F.linear(_merge_heads(out), params["wo"])
+    return F.linear(_merge_heads(out), params["wo"]), None
 
 
 # --- MLPs ----------------------------------------------------------------------

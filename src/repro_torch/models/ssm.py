@@ -1,5 +1,5 @@
 """Mamba-1 selective SSM block (falcon-mamba / hymba SSM heads), the
-training forward of ``repro.models.ssm``.
+training forward and the decode state of ``repro.models.ssm``.
 
 The reference keeps the (B, S, d_inner, N) discretised tensors out of memory
 by an outer scan over sequence chunks, each rematerialised under
@@ -13,13 +13,16 @@ inner scan a Python loop of two launches a step (``addcmul`` and a batched
 product).  The reference has no Pallas kernel here, so neither has the
 port; the loop is plain PyTorch.  Weights are (out, in) like every dense
 weight of the port; ``conv_w`` stays (k, d_inner) as in the reference.
-``ssm_step`` and the prefill from a carried state wait for the serving slice
-(ROADMAP queue A.4).
+
+Decode carries a state ``{'conv': (B, k - 1, d_inner), 'h': (B, d_inner,
+N) f32}``: the causal conv's last k - 1 inputs and the recurrence.  A
+prefill runs the chunked scan from it (``ssm_apply(state=...,
+return_state=True)``), a decode token advances it by :func:`ssm_step`.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,19 +66,25 @@ def _projections(params: Params, cfg: ModelConfig, u: torch.Tensor):
     return delta, bmat, cmat
 
 
-def _causal_conv(params: Params, cfg: ModelConfig,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d from a zero history.  x: (B, S, di)."""
+def _causal_conv(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                 conv_cache: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  x: (B, S, di); ``conv_cache`` the k - 1
+    inputs before x (zeros when None).  Returns the output in x's dtype and
+    the last k - 1 inputs of the padded sequence (the next conv cache)."""
     kk, s = cfg.ssm_conv, x.shape[1]
-    pad = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if conv_cache is None:
+        pad = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = conv_cache.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                            # (B, S+k-1, di)
     w = params["conv_w"].float()                               # (k, di)
     out = xp[:, 0:s].float() * w[0]
     for i in range(1, kk):
         out = out + xp[:, i:i + s].float() * w[i]
     out = out + params["conv_b"].float()
-    return out.to(x.dtype)
+    new_cache = xp[:, xp.shape[1] - (kk - 1):] if kk > 1 else pad
+    return out.to(x.dtype), new_cache
 
 
 def _chunk(h, dl, bm, cm, uu, a):
@@ -95,13 +104,18 @@ def _chunk(h, dl, bm, cm, uu, a):
 
 
 def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-              chunk: int = 64) -> torch.Tensor:
-    """Training forward from a zero state.  x: (B, S, d) -> (B, S, d); the
-    recurrence in f32, the output in x's dtype."""
+              chunk: int = 64, state: Optional[dict] = None,
+              return_state: bool = False):
+    """Training / prefill forward.  x: (B, S, d) -> (B, S, d); the
+    recurrence in f32, the output in x's dtype.  ``state``: a carried
+    decode state ``{'conv', 'h'}`` to continue from (zeros when None);
+    ``return_state=True`` also returns the final ``{'conv', 'h'}``, exact
+    (the padded steps leave h unchanged), the conv in ``conv_w``'s dtype."""
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     u, z = torch.chunk(F.linear(x, params["in_proj"]), 2, dim=-1)
-    u = _causal_conv(params, cfg, u)
+    u, new_conv = _causal_conv(params, cfg, u,
+                               None if state is None else state["conv"])
     u = F.silu(u.float()).to(x.dtype)
     delta, bmat, cmat = _projections(params, cfg, u)
     a = -torch.exp(params["A_log"])                            # (di, N)
@@ -112,7 +126,8 @@ def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     # padded steps have delta = 0: exp(0 * A) = 1 and no input, so h is
     # unchanged by them
     pads = [F.pad(t, (0, 0, 0, sp - s)) for t in (delta, bmat, cmat, uf)]
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+         if state is None else state["h"])
     ys = []
     for c0 in range(0, sp, chunk):
         args = [t[:, c0:c0 + chunk] for t in pads]
@@ -124,4 +139,39 @@ def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     y = torch.cat(ys, dim=1)[:, :s]
     y = y + params["D"] * uf
     y = y * F.silu(z.float())
-    return F.linear(y.to(x.dtype), params["out_proj"])
+    out = F.linear(y.to(x.dtype), params["out_proj"])
+    if not return_state:
+        return out
+    return out, {"conv": new_conv.to(params["conv_w"].dtype), "h": h}
+
+
+def ssm_init_state(cfg: ModelConfig, batch: int,
+                   dtype: torch.dtype = torch.float32,
+                   device: str | torch.device = "cpu") -> dict:
+    """The zero decode state: conv (B, k - 1, d_inner) in ``dtype``, h
+    (B, d_inner, N) in f32."""
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def ssm_step(params: Params, cfg: ModelConfig, x: torch.Tensor,
+             state: dict) -> tuple[torch.Tensor, dict]:
+    """One decode token.  x: (B, 1, d) -> (out (B, 1, d), new state); the
+    conv state keeps its dtype."""
+    u, z = torch.chunk(F.linear(x, params["in_proj"]), 2, dim=-1)
+    u, new_conv = _causal_conv(params, cfg, u, state["conv"])
+    u = F.silu(u.float()).to(x.dtype)
+    delta, bmat, cmat = _projections(params, cfg, u)           # (B, 1, ...)
+    a = -torch.exp(params["A_log"])
+    da = torch.exp(delta[:, 0, :, None] * a)                   # (B, di, N)
+    dbu = (delta[:, 0] * u[:, 0].float())[..., None] * bmat[:, 0, None, :]
+    h = state["h"] * da + dbu                                  # (B, di, N)
+    y = torch.bmm(h, cmat[:, 0, :, None])[..., 0][:, None]     # (B, 1, di)
+    y = y + params["D"] * u.float()
+    y = y * F.silu(z.float())
+    out = F.linear(y.to(x.dtype), params["out_proj"])
+    return out, {"conv": new_conv.to(state["conv"].dtype), "h": h}

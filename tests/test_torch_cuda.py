@@ -19,7 +19,11 @@ the gradient through ``ops.flash_attention`` to the plain version's at
 2e-3.  The bf16 attention kernel (tensor cores) is held at ragged q-tiles
 (Sq = 129, 17, 1 against Skv = 300), at every head dim, with windows and
 on transposed views, and must refuse views that are not 16-byte aligned;
-the f32 kernel (CUDA cores) takes such views.  ``sq_dists_to_points`` is
+the f32 kernel (CUDA cores) takes such views.  Non-causal bf16 attention
+with no window (the encoder-decoder's encoder) is held at Dh 64 (the
+seamless encoder's 16 heads over 960 frames) and Dh 96, and the reduced
+encoder-decoder's encoder through the kernel to the same model's on the
+CPU.  ``sq_dists_to_points`` is
 held at every sketch width D in {1, 64, 255, 256, 1024, 2048}, for each
 mix of W and point dtypes, up to its N*K limit and on an unaligned base
 (the small-D kernel's element path), and must repeat itself bit for bit.
@@ -165,7 +169,12 @@ FLASH_SHAPES = [(1, 4, 1, 128, 128, 64, True, None, "float32"),
                 (1, 4, 2, 300, 300, 96, True, 100, "bfloat16"),
                 (1, 2, 1, 130, 200, 64, False, 50, "bfloat16"),
                 (1, 4, 2, 300, 300, 96, True, 100, "float32"),
-                (1, 2, 1, 130, 200, 64, False, 50, "float32")]
+                (1, 2, 1, 130, 200, 64, False, 50, "float32"),
+                # non-causal bf16, no window: the encoder-decoder's encoder
+                # (seamless: 16 heads of 64 over 960 frames) and Dh 96
+                (1, 16, 16, 960, 960, 64, False, None, "bfloat16"),
+                (2, 8, 8, 200, 200, 96, False, None, "bfloat16"),
+                (1, 4, 2, 77, 77, 96, False, None, "bfloat16")]
 
 
 def _flash_inputs(shape, seed=0):
@@ -810,3 +819,44 @@ def test_cuda_dp_path_bounds_norms_and_matches_cpu():
         generator=torch.Generator(device="cuda").manual_seed(0))
     std = float(torch.std(drawn - clipped))
     assert abs(std / 0.5 - 1.0) < 0.02
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_through_the_kernel_matches_cpu():
+    """The reduced encoder-decoder (f32, Dh 64) with the flash switch on:
+    its encoder launches the kernel once a layer, non-causally, and its
+    memory and prefill logits match the CPU model's (plain attention) at
+    the kernel's f32 bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import encdec, layers
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(get("seamless-m4t-large-v2"))
+    cpu = tf.init(torch.Generator().manual_seed(0), cfg)
+    card = tf.init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9))),
+             "modal": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.n_modal_tokens, cfg.d_modal)).astype(np.float32))}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        want_mem = encdec.encode(cpu, batch["modal"])
+        want, _ = tf.prefill(cpu, batch, tf.init_cache(cfg, 2, 12))
+        layers.set_flash_kernel(True)
+        try:
+            before = tfa.LAUNCHES["flash_attention"]
+            mem = encdec.encode(card, on_card["modal"])
+            got, _ = tf.prefill(card, on_card,
+                                tf.init_cache(cfg, 2, 12, device="cuda"))
+            torch.cuda.synchronize()
+            launched = tfa.LAUNCHES["flash_attention"] - before
+        finally:
+            layers.set_flash_kernel(False)
+    assert launched == 2 * cfg.n_enc_layers
+    np.testing.assert_allclose(mem.cpu().numpy(), want_mem.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)

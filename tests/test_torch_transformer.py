@@ -9,8 +9,10 @@ weights are the reference's own init, carried across with
 - the gradient through ``ops.flash_attention`` against ``jax.grad`` of the
   reference's ``ops.flash_attention``: 2e-3 (tests/test_kernels.py:130);
 - the layers (rmsnorm, rope, mlp, ssm_apply): 1e-5;
-- the reduced models: logits within 1e-4, loss within 1e-5 relative, with
-  the port's flash switch on and off (on the CPU the switch routes through
+- the reduced models of all ten assigned architectures (the VLM and
+  encoder-decoder with a modal input): logits within 1e-4, the MoE aux
+  within 1e-5, loss (with the aux term) within 1e-5 relative, with the
+  port's flash switch on and off (on the CPU the switch routes through
   ``ops.flash_attention``, whose CPU path is the plain attention).
 The configs are equal field by field, and ``lm_tokens`` bit for bit.
 """
@@ -49,7 +51,7 @@ ATTN_SHAPES = KERNEL_SHAPES[:2] + [
     (1, 2, 2, 64, 64, 128, False, None, "float32"),
     (1, 4, 2, 64, 192, 64, True, None, "float32"),
     (1, 6, 2, 48, 48, 32, False, 16, "float32")]
-ARCHS = ["starcoder2-7b", "chatglm3-6b", "hymba-1.5b", "falcon-mamba-7b"]
+ARCHS = jreg.ASSIGNED
 
 
 def _qkv(shape, seed=0):
@@ -179,42 +181,46 @@ def test_ssm_apply_matches_reference():
 def test_reduced_forward_and_loss_match_reference(arch):
     jcfg, tcfg = jreg.reduced(jreg.get(arch)), treg.reduced(treg.get(arch))
     params = jtf.init(jax.random.key(0), jcfg)
-    tokens = np.random.default_rng(7).integers(
-        0, jcfg.vocab, (2, 40)).astype(np.int32)
-    want_logits, _ = jtf.forward(params, jcfg, {"tokens": jnp.asarray(tokens)})
-    want_loss = float(jtf.loss_fn(params, jcfg,
-                                  {"tokens": jnp.asarray(tokens)}))
-    model = carry.transformer_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(tokens)}
     batch = {"tokens": torch.from_numpy(tokens)}
+    if jcfg.modality:
+        modal = rng.standard_normal(
+            (2, jcfg.n_modal_tokens, jcfg.d_modal)).astype(np.float32)
+        jbatch["modal"] = jnp.asarray(modal)
+        batch["modal"] = torch.from_numpy(modal)
+    want_logits, want_aux = jtf.forward(params, jcfg, jbatch)
+    want_loss = float(jtf.loss_fn(params, jcfg, jbatch))
+    model = carry.transformer_from_jax(jax.tree.map(np.asarray, params), tcfg)
     for flash in (False, True):
         layers.set_flash_kernel(flash)
         try:
             with torch.no_grad():
-                logits = tf.forward(model, batch)
+                logits, aux = tf.forward(model, batch)
                 loss = float(tf.loss_fn(model, batch))
         finally:
             layers.set_flash_kernel(False)
         np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                    rtol=0, atol=1e-4)
+        assert abs(float(aux) - float(want_aux)) <= 1e-5, (flash, aux,
+                                                            want_aux)
         assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (flash, loss,
                                                                 want_loss)
 
 
-def test_carry_round_trips_the_reference_tree():
-    cfg = jreg.reduced(jreg.get("hymba-1.5b"))
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "moonshot-v1-16b-a3b",
+                                  "phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2"])
+def test_carry_round_trips_the_reference_tree(arch):
+    cfg = jreg.reduced(jreg.get(arch))
     tree = jax.tree.map(np.asarray, jtf.init(jax.random.key(1), cfg))
     back = carry.transformer_to_jax(carry.transformer_from_jax(
-        tree, treg.reduced(treg.get("hymba-1.5b"))))
+        tree, treg.reduced(treg.get(arch))))
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-
-
-def test_unported_families_raise():
-    for arch in ("phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init(torch.Generator(), treg.reduced(treg.get(arch)))
 
 
 @pytest.mark.parametrize("name", sorted(jreg.ARCHS) + sorted(jreg.EXTRA_ARCHS))
