@@ -94,6 +94,36 @@ In order, it
      finite and >= 0; then one local phase on the card through the DP path
      at clip 1.0: delta norms within the clip at sigma 0, the noise
      residual's std within 2% of 0.5 at sigma 0.5 (phase h);
+  6g. runs the host side (``train --mode fl --engine semi_async --rounds 3
+     --snapshot-dir S --snapshot-every 1 --snapshot-keep 2 --ckpt-dir C
+     --ckpt-every 1 --metrics-out L --trace-out T``; the ideal fleet, equal
+     to scan bit for bit, since the simulated-time trace needs a substrate
+     engine), counters set to 0 just before: each fused-round kernel 3
+     times and nothing else; the store keeps rounds 1 and 2, the
+     checkpoints are rounds 0-2, the ledger is run_meta plus 3 round
+     records and its trace validates; prints each snapshot's and
+     checkpoint's write time and bytes.  Then, in a process of its own
+     under torch's deterministic algorithms (by default the card's local
+     phase is not bit-reproducible), the same run at 1 local epoch
+     checkpointed every round, cut back to its round-1 checkpoint and
+     resumed
+     (``--resume``), counters set to 0 just before: each fused kernel
+     once; the resume's and the restore's seconds; θ and every trace row
+     equal to the uninterrupted run's bit for bit (phase i);
+  6h. runs ``serve --mode fl`` on that store at the CLI's defaults,
+     counters set to 0 just before (no kernel), with a round published
+     after its first batch: a hot swap and one graph capture in all;
+     prints queries per second and ``swap_ms_mean``, also at batch 32 over
+     64 batches; the routed logits of every client and a stranger within
+     1e-5 of the max of a direct forward through that row's model (phase
+     ii);
+  6i. runs ``train --mode fl --model transformer_tiny --rounds 3
+     --local-epochs 1``,
+     counters set to 0 just before: each fused kernel 3 times on the bf16
+     (10, 27,626) W (its route printed), accuracy finite, the last round
+     on ``cuda`` against ``stream`` on the same W and state (equal
+     assignment and centers, θ within 5e-6); then both fused kernels at
+     that shape against their plain versions, and timed (phase iii);
   7. runs the sketch path, ``train --mode fl --method coalition_topk
      --sketch rproj --sketch-dim 256`` at its defaults for 2 rounds, counters
      set to 0 just before: ``sq_dists_to_points`` twice and ``segment_sum``
@@ -158,7 +188,9 @@ In order, it
       composed round at the main width and at 8M, the pairwise calls at
       the main width and at 8M, the pretrain path, and ``flash_attention``
       also at the serve path's encoder shape with the seamless phase's
-      launches; a line with none fails),
+      launches, and the fused round's two kernels also at the
+      transformer_tiny path's bf16 (10, 3, 27,626) with its launches; a
+      line with none fails),
       and last
       ``{"ok": true, "device": {...}}``.
 
@@ -170,8 +202,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -210,6 +244,30 @@ COHORT_ARGS = ["--mode", "fl", "--fleet", "cellular-flaky", "--fleet-size",
                str(FLEET_SIZE), "--rounds", str(ROUNDS)]
 ATTACK_ARGS = ["--mode", "fl", "--attack", "sign_flip", "--adv-frac", "0.2",
                "--rounds", str(ROUNDS)]
+#: the host side (phase i): the main path with a snapshot and a checkpoint
+#: every round, the newest HOST_KEEP snapshots kept, and the run ledger
+#: with its simulated-time trace, which needs a substrate engine: so on
+#: semi_async over the ideal fleet, which equals scan bit for bit
+HOST_KEEP = 2
+HOST_FLAGS = ["--mode", "fl", "--engine", "semi_async", "--rounds",
+              str(ROUNDS)]
+#: the resume check runs as ``chip_smoke.py RESUME_CHECK DIR``, a process
+#: of its own, under torch's deterministic algorithms, whose cuBLAS check
+#: needs this workspace setting before CUDA starts
+RESUME_CHECK = "resume-check"
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+#: the resume check's runs: phase i's, cut from 5 local epochs to 1
+RESUME_FLAGS = HOST_FLAGS + ["--local-epochs", "1"]
+#: the routed logits of serve --mode fl against a direct forward
+SERVE_FL_TOL = 1e-5
+#: the served batches of the steady-state serve figure (phase ii)
+SERVE_FL_STEADY = ["--batch", "32", "--repeat", "64"]
+#: the bf16 model of the zoo (phase iii), cut from 5 local epochs to 1 (its
+#: local phase is ~3x the CNN's a step), and the shape its rounds give the
+#: fused kernels: N = 10, K = 3, D = 27,626 bf16
+TINY_ARGS = ["--mode", "fl", "--model", "transformer_tiny", "--rounds",
+             str(ROUNDS), "--local-epochs", "1"]
+TINY = (10, 3, 27_626)
 #: the DP phase's noise multiplier and the bound on its residual's std
 DP_SIGMA = 0.5
 DP_STD_RTOL = 0.02
@@ -1354,6 +1412,348 @@ def run_attack_path() -> None:
              f"{DP_SIGMA}")
 
 
+class timing:
+    """Within the block, every call of ``owner.name`` appends its seconds
+    to ``times`` (a method, or a module's function)."""
+
+    def __init__(self, owner, name: str, times: list):
+        self.owner, self.name, self.times = owner, name, times
+
+    def __enter__(self):
+        original = self.original = getattr(self.owner, self.name)
+        times = self.times
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = original(*args, **kw)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def run_host_path(tmp: str) -> dict:
+    """Phase i: the main path on semi_async over the ideal fleet with every
+    host-side hook, counters reset just before: a snapshot and a checkpoint
+    each round, the ledger and its trace; each fused kernel once a round
+    and nothing else; the store keeps the newest HOST_KEEP rounds; the
+    ledger is run_meta plus a record a round and its trace validates.  Then
+    :func:`resume_check` in a process of its own: the resume launches each
+    fused kernel once and equals the uninterrupted run bit for bit.
+    Returns the store's path and the figures."""
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.obs import timeline
+    from repro_torch.serve import ModelStore
+
+    store, ckpt = os.path.join(tmp, "store"), os.path.join(tmp, "ckpt")
+    ledger, trace = os.path.join(tmp, "run.jsonl"), os.path.join(
+        tmp, "trace.json")
+    argv = HOST_FLAGS + [
+        "--snapshot-dir", store, "--snapshot-every", "1", "--snapshot-keep",
+        str(HOST_KEEP), "--ckpt-dir", ckpt, "--ckpt-every", "1",
+        "--metrics-out", ledger, "--trace-out", trace]
+    label = (f"train {' '.join(HOST_FLAGS)} --snapshot-every 1 "
+             f"--snapshot-keep {HOST_KEEP} --ckpt-every 1 (+ ledger, trace)")
+    publish_s, save_s = [], []
+    with timing(ModelStore, "publish", publish_s), \
+            timing(checkpoint, "save_federation", save_s):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    want_rounds = list(range(ROUNDS))
+    if out["published_rounds"] != want_rounds[-HOST_KEEP:]:
+        fail(f"{label}: the store kept {out['published_rounds']}, not the "
+             f"newest {HOST_KEEP} of {want_rounds}")
+    if out["ckpt_rounds"] != want_rounds:
+        fail(f"{label}: checkpoints {out['ckpt_rounds']}")
+    records = timeline.read_ledger(ledger)
+    kinds = [r["kind"] for r in records]
+    errors = timeline.validate_trace(timeline.build_trace(records))
+    errors += timeline.validate_trace(json.load(open(trace)))
+    if kinds != ["run_meta"] + ["round"] * ROUNDS or errors:
+        fail(f"{label}: ledger {kinds}, trace errors {errors}")
+    snap_bytes = dir_bytes(os.path.join(store, f"step_{ROUNDS - 1:08d}"))
+    ckpt_bytes = dir_bytes(os.path.join(ckpt, f"step_{ROUNDS - 1:08d}"))
+    print(f"{label}: snapshot writes {[round(t, 4) for t in publish_s]} s "
+          f"({snap_bytes} bytes each), checkpoint writes "
+          f"{[round(t, 4) for t in save_s]} s ({ckpt_bytes} bytes the "
+          f"last), ledger {len(records)} records, trace "
+          f"{out['trace_events']} events, errors {errors}")
+    if len(publish_s) != ROUNDS or len(save_s) != ROUNDS:
+        fail(f"{label}: {len(publish_s)} snapshots and {len(save_s)} "
+             f"checkpoints, not {ROUNDS} each")
+    print(f"phase i (host side, semi_async, ideal): {wall:.1f} s")
+
+    label = (f"train {' '.join(RESUME_FLAGS)} --ckpt-every 1, cut to round "
+             f"{ROUNDS - 2} and --resume (deterministic algorithms, a "
+             f"process of its own)")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), RESUME_CHECK,
+         os.path.join(tmp, "resume")], env=dict(os.environ,
+                                                 **DETERMINISTIC_ENV),
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        fail(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"{label}: resume {res['resume_s']:.2f} s ({res['restore_s']:.4f} "
+          f"s of it the restore), launches {res['launches']}; theta against "
+          f"the uninterrupted run's: max abs err / max {res['theta_err']:.3e}"
+          f", every trace row {'equal' if res['rows'] else 'NOT equal'}; "
+          f"test_acc {res['test_acc']} against {res['test_acc_full']}")
+    expect_launches(label, res["launches"], {"center_sq_dists": 1,
+                                             "fused_coalition_stats": 1})
+    if not (res["theta_err"] == 0.0 and res["rows"]):
+        fail(f"{label}: the resumed run is not the uninterrupted run's bit "
+             f"for bit")
+    return {"store": store, "publish_s": publish_s, "save_s": save_s,
+            "restore_s": res["restore_s"], "resume_s": res["resume_s"],
+            "snap_bytes": snap_bytes, "ckpt_bytes": ckpt_bytes}
+
+
+def resume_check(tmp: str) -> None:
+    """Phase i's resume, in a process of its own (``chip_smoke.py
+    RESUME_CHECK DIR``, with DETERMINISTIC_ENV): under torch's deterministic
+    algorithms the local phase is bit-reproducible on the card
+    (scripts/determinism_cost.py; by default cuDNN's and the batch
+    gather's gradients add in any order), so a run checkpointed every
+    round, cut back to round ROUNDS - 2 and resumed must give the
+    uninterrupted run's θ and trace rows bit for bit.  The resume's
+    launches are counted with the counters at 0 just before it.  Prints
+    one JSON line."""
+    import torch
+
+    from repro_torch.core import pytree
+    from repro_torch.core.server import Federation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    ckpt, cut = os.path.join(tmp, "ckpt"), os.path.join(tmp, "cut")
+    full = train.main(RESUME_FLAGS + ["--ckpt-dir", ckpt, "--ckpt-every",
+                                      "1"])
+    shutil.copytree(ckpt, cut)
+    shutil.rmtree(os.path.join(cut, f"step_{ROUNDS - 1:08d}"))
+    restore_s = []
+    with timing(Federation, "_restore_ckpt", restore_s):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(RESUME_FLAGS + ["--ckpt-dir", cut,
+                                         "--ckpt-every", "1", "--resume"])
+        resume_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    layout = zoo.make_model("cnn").layout
+    _, theta_err = rel_err(pytree.flatten(res["params"], layout),
+                           pytree.flatten(full["params"], layout))
+    h, h_res = full["history"].trace, res["history"].trace
+    rows = all(getattr(h, f) is None
+               or (getattr(h, f) == getattr(h_res, f)).all()
+               for f in h._fields if f not in ("local_s", "server_s"))
+    print(json.dumps({"launches": launches, "theta_err": theta_err,
+                      "rows": bool(rows), "restore_s": restore_s[0],
+                      "resume_s": resume_s, "test_acc": res["test_acc"],
+                      "test_acc_full": full["test_acc"]}))
+
+
+def run_serve_fl_path(store_dir: str) -> dict:
+    """Phase ii: ``serve --mode fl`` on phase i's store at the CLI's
+    defaults, counters reset just before (no kernel launches), with a round
+    published after its first batch: at least one hot swap, one capture in
+    all; then a steady-state run, and the routed logits of every client and
+    a stranger against a direct forward through its coalition's barycenter
+    or θ, within SERVE_FL_TOL of the max."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    from repro_torch.serve import BatchServer, ModelStore
+
+    publisher = ModelStore(store_dir, keep=HOST_KEEP)
+    published = []
+    original = BatchServer.serve
+
+    def serve_then_publish(self, ids, x):
+        out = original(self, ids, x)
+        if not published:        # the trainer publishes a newer round
+            snap = publisher.load()
+            r = snap.round + 1
+            noise = torch.randn(snap.barycenters.shape,
+                                generator=torch.Generator().manual_seed(r))
+            publisher.publish(
+                r, snap.global_params, snap.barycenters + 0.01 * noise,
+                assignment=np.roll(snap.assignment, 1), counts=snap.counts,
+                extra_meta={k: snap.meta[k] for k in ("engine", "method",
+                                                      "n_clients")})
+            published.append(r)
+        return out
+
+    argv = ["--mode", "fl", "--store-dir", store_dir]
+    label = "serve --mode fl (defaults, a round published after batch 0)"
+    BatchServer.serve = serve_then_publish
+    try:
+        ops.reset_launch_counts()
+        out = serve.main(argv)
+        launches = ops.launch_counts()
+    finally:
+        BatchServer.serve = original
+    expect_launches(label, launches, {})
+    print(f"{label}: queries_per_s {out['queries_per_s']}, swap_ms_mean "
+          f"{out['swap_ms_mean']}, hot_swaps {out['hot_swaps']}, "
+          f"compile_count {out['compile_count']}, round {out['round']}")
+    if (out["hot_swaps"] < 1 or out["compile_count"] != 1
+            or out["round"] != published[0]):
+        fail(f"{label}: no hot swap to round {published}, or the swap "
+             f"rebuilt the program")
+    steady = serve.main(argv + SERVE_FL_STEADY)
+    print(f"serve --mode fl {' '.join(SERVE_FL_STEADY)}: queries_per_s "
+          f"{steady['queries_per_s']}, compile_count "
+          f"{steady['compile_count']}")
+
+    snap = ModelStore(store_dir).load(device="cuda")
+    server = BatchServer(cnn.apply, cnn.REF_LAYOUT, snap, device="cuda")
+    ids = np.array(list(range(snap.assignment.size)) + [-1])
+    x = torch.randn((ids.size, 28, 28, 1), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    got = server.serve(ids, x)
+    params = pytree.from_ref_tree(snap.global_params, cnn.REF_LAYOUT)
+    worst = 0.0
+    with torch.no_grad():
+        for q, row in enumerate(server.routing.model_rows(ids)):
+            vec = (pytree.flatten(params, cnn.REF_LAYOUT) if row == 0
+                   else snap.barycenters[row - 1])
+            want = cnn.apply(pytree.unflatten(vec, cnn.REF_LAYOUT, params),
+                             x)[q]
+            worst = max(worst, rel_err(got[q], want)[1])
+    print(f"serve --mode fl routed logits against a direct forward through "
+          f"each row's model: max abs err / max {worst:.3e} (bound "
+          f"{SERVE_FL_TOL:.0e})")
+    if not worst <= SERVE_FL_TOL:
+        fail("serve --mode fl: routed logits disagree with a direct forward")
+    return {"qps": out["queries_per_s"], "swap_ms": out["swap_ms_mean"],
+            "steady_qps": steady["queries_per_s"]}
+
+
+def run_tiny_path() -> dict:
+    """Phase iii: ``train --mode fl --model transformer_tiny`` for ROUNDS
+    rounds, counters reset just before: each fused kernel once a round on
+    the bf16 (10, 27,626) W, nothing else; accuracy finite; the last round
+    on cuda against the same W and state on stream (equal assignment and
+    centers, θ within TOL of its max).  Then both fused kernels at this
+    shape against their plain versions, and timed.  Returns the kernels'
+    rows for the kernels line."""
+    import torch
+
+    from repro_torch.core import strategies
+    from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+
+    seen = {}
+    original = strategies.CoalitionStrategy.round
+
+    def recording(self, w, state, mask=None):
+        res = original(self, w, state, mask)
+        seen.update(w=w, state=state, mask=mask, res=res,
+                    route=fr.route(*w.shape[:1], self.n_groups, w.shape[1],
+                                   w.dtype, w.data_ptr()))
+        return res
+
+    label = f"train {' '.join(TINY_ARGS)}"
+    strategies.CoalitionStrategy.round = recording
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.main(TINY_ARGS)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        strategies.CoalitionStrategy.round = original
+    for r, (loc, srv) in enumerate(zip(out["local_s"], out["server_s"])):
+        print(f"{label} round {r}: local phase {loc:.4f} s, server step "
+              f"{srv:.4f} s")
+    w = seen["w"]
+    print(f"{label}: {wall:.1f} s, launches {launches}, W {tuple(w.shape)} "
+          f"{w.dtype} (route {seen['route']}), test_acc {out['test_acc']}")
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    if tuple(w.shape) != TINY[::2] or w.dtype != torch.bfloat16:
+        fail(f"{label}: W is {tuple(w.shape)} {w.dtype}, not a bf16 "
+             f"{TINY[::2]}")
+    if not all(math.isfinite(a) for a in out["test_acc"]):
+        fail(f"{label}: accuracy {out['test_acc']} is not finite")
+    stream = strategies.make_strategy("coalition", n_clients=TINY[0],
+                                      n_coalitions=TINY[1],
+                                      backend="stream")
+    want, got = stream.round(w, seen["state"], mask=seen["mask"]), \
+        seen["res"]
+    _, theta_err = rel_err(got.theta, want.theta)
+    print(f"{label}: the last round on cuda against stream: assignment "
+          f"{got.metrics.assignment.tolist()} / "
+          f"{want.metrics.assignment.tolist()}, centers "
+          f"{got.state.center_idx.tolist()} / "
+          f"{want.state.center_idx.tolist()}, theta max abs err / max "
+          f"{theta_err:.3e}")
+    if (not torch.equal(got.metrics.assignment, want.metrics.assignment)
+            or not torch.equal(got.state.center_idx, want.state.center_idx)
+            or not theta_err <= TOL):
+        fail(f"{label}: the cuda round is not stream's")
+    print(f"phase iii (transformer_tiny, bf16 W): {wall:.1f} s")
+
+    n, k, d = TINY
+    w, conehot, m = inputs(n, k, d, torch.bfloat16, seed=3)
+    errs = {"center_sq_dists": rel_err(fr.center_sq_dists(w, conehot),
+                                       ref.center_sq_dists(w, conehot))}
+    pairs = [rel_err(g, r) for g, r in zip(fr.fused_coalition_stats(w, m),
+                                          ref.fused_coalition_stats(w, m))]
+    errs["fused_coalition_stats"] = (max(a for a, _ in pairs),
+                                     max(r for _, r in pairs))
+    for name, (err, rel) in errs.items():
+        print(f"check {name} N={n} K={k} D={d} bfloat16 (route "
+              f"{fr.route(n, k, d, w.dtype, w.data_ptr())}): max abs err "
+              f"{err:.3e}, / max {rel:.3e} (bound {TOL:.0e})")
+        if not rel <= TOL:
+            fail(f"{name} disagrees with its plain version at the "
+                 f"transformer_tiny shape")
+    wb = n * d * 2
+    rows = {
+        "center_sq_dists": timed_row(
+            f"center_sq_dists N={n} K={k} D={d} bf16",
+            lambda: fr.center_sq_dists(w, conehot),
+            lambda: ref.center_sq_dists(w, conehot), None,
+            wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d),
+        "fused_coalition_stats": timed_row(
+            f"fused_coalition_stats N={n} K={k} D={d} bf16",
+            lambda: fr.fused_coalition_stats(w, m),
+            lambda: ref.fused_coalition_stats(w, m), None,
+            wb + 4 * (k * n + k * d + d + n * k),
+            2 * k * n * d + k * d + d + 3 * n * k * d)}
+    for name, row in rows.items():
+        row["err"] = errs[name][0]
+        row["kernel_route"] = fr.route(n, k, d, w.dtype, w.data_ptr())
+    rows["launches"] = launches
+    return rows
+
+
 def run_sketch_path():
     """Phase 7: the sketch path through the training entry point, counters
     reset just before: sq_dists_to_points twice and segment_sum once per
@@ -2087,6 +2487,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [RESUME_CHECK]:
+        resume_check(sys.argv[2])
+        return 0
     from repro_torch.kernels import build
 
     print(card_line())
@@ -2118,6 +2521,20 @@ def main() -> int:
     run_coupled_path()
     run_cohort_path()
     run_attack_path()
+    tmp = tempfile.mkdtemp(prefix=".smoke-host-", dir=ROOT)
+    try:
+        host = run_host_path(tmp)
+        serve_fl = run_serve_fl_path(host["store"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tiny = run_tiny_path()
+    print(f"host summary: snapshot write {max(host['publish_s']):.4f} s "
+          f"max, checkpoint write {max(host['save_s']):.4f} s max, resume "
+          f"{host['resume_s']:.2f} s (restore {host['restore_s']:.4f} s, "
+          f"bit for bit, deterministic algorithms); serve "
+          f"--mode fl {serve_fl['qps']} queries/s at the defaults, "
+          f"{serve_fl['steady_qps']} steady, swap_ms_mean "
+          f"{serve_fl['swap_ms']}")
     sketch_routes, w = run_sketch_path()
     pair_routes, pair_err = run_pairwise(w)
     del w
@@ -2195,6 +2612,12 @@ def main() -> int:
                           BIG_D, f"pairwise N={n} D={BIG_D}",
                           big["pairwise routes"])))
     encoder_arch = next(a for a, extra in SERVE_PHASES if "--flash" in extra)
+    n_t, k_t, d_t = TINY
+    lines += [(name, f"N={n_t} K={k_t} D={d_t} bf16", tiny[name],
+               tiny[name]["err"],
+               (f"transformer_tiny path ({' '.join(TINY_ARGS)})",
+                tiny["launches"]))
+              for name in ("center_sq_dists", "fused_coalition_stats")]
     lines.append(("flash_attention", f"{FLASH_ENCODER[:6]} bf16 non-causal",
                   flash_rows[FLASH_ENCODER], flash_errs[FLASH_ENCODER],
                   (f"serve path ({encoder_arch} --flash)",

@@ -4,7 +4,9 @@ The reference keeps a model's parameters as a nested dict of arrays in its
 own layouts (``repro.models.cnn.init``: HWIO convolutions, (in, out) dense
 weights); the port keeps a flat dict of tensors in PyTorch layouts.
 :func:`params_from_jax` and :func:`params_to_jax` translate, given a model's
-``layout``, so the tests can run both packages on the same weights.
+``layout`` (buffers such as ``transformer_tiny``'s int32 ``pos_ids`` and
+bfloat16 leaves included), so the tests can run both packages on the same
+weights.
 
 The LM stack (``repro.models.transformer``) stacks its layers on a leading
 L axis; the port's :class:`~repro_torch.models.transformer.Transformer`
@@ -25,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import pytree
 from repro_torch.models import cnn
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -38,35 +41,56 @@ DENSE = frozenset({"wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wi",
 EXPERTS = frozenset({"wi_gate", "wi_up", "wo"})
 
 
+def _leaf_to_torch(leaf) -> torch.Tensor:
+    """An array of any kind as a CPU tensor; numpy has no bfloat16 of its
+    own, so an ml_dtypes bfloat16 array goes through f32 (lossless)."""
+    arr = np.array(leaf)
+    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def tree_to_torch(tree):
+    """A nested tree of arrays (dicts, lists) as the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_torch(v) for v in tree]
+    return _leaf_to_torch(tree)
+
+
+def _listify(node):
+    """Dicts keyed 0..n-1 (a reference list, by its leaf paths) -> lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node) and \
+            sorted(int(k) for k in node) == list(range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def params_from_jax(tree, layout=cnn.REF_LAYOUT,
                     device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
-    """Reference parameter tree (nested dicts of arrays) -> port params."""
-    out = {}
-    for name, path, perm in layout:
-        leaf = tree
-        for key in path.split("/"):
-            leaf = leaf[key]
-        t = torch.from_numpy(np.array(leaf))
-        if perm is not None:
-            t = t.permute(perm)
-        out[name] = t.contiguous().to(device)
-    return out
+    """Reference parameter tree (nested dicts and lists of arrays) -> port
+    params, every leaf the layout names (float leaves and buffers) in its
+    dtype (bfloat16 included)."""
+    return pytree.from_ref_tree(tree_to_torch(tree), layout, device)
 
 
 def params_to_jax(params: dict[str, torch.Tensor],
                   layout=cnn.REF_LAYOUT) -> dict:
-    """Port params -> reference parameter tree of numpy arrays."""
-    tree: dict = {}
-    for name, path, perm in layout:
-        t = params[name].detach().cpu()
-        if perm is not None:
-            t = t.permute(*(int(i) for i in np.argsort(perm)))
-        node = tree
-        *parents, leaf = path.split("/")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = t.contiguous().numpy()
-    return tree
+    """Port params -> reference parameter tree of numpy arrays (a list
+    where the reference keeps one, as ``blocks``).  numpy has no bfloat16:
+    bf16 leaves come out widened to f32, exactly; cast them back on the
+    reference side."""
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _listify(to_numpy(pytree.to_ref_tree(params, layout)))
 
 
 def _dense(sub: str, name: str) -> bool:
@@ -140,6 +164,27 @@ def transformer_to_jax(model: tf.Transformer) -> dict:
             "ln_f": {"scale": _to_ref("scale", enc.ln_f["scale"])},
             "layers": _layers_to_jax(enc.layers)}
     return tree
+
+
+def transformer_layout(model: tf.Transformer) -> tuple:
+    """The LM's ``(parameter, reference leaf, permutation)`` layout in the
+    reference's flatten order: each layer's tensor an entry of its stacked
+    reference leaf (``layers/<sub>/<name>``, stacked on a leading L axis in
+    layer order), dense weights transposed.  Token-only archs (no
+    encoder, no modal projector)."""
+    entries = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i, sub, leaf = int(parts[1]), parts[2], parts[3]
+            path, dense = f"layers/{sub}/{leaf}", _dense(sub, leaf)
+        elif parts[0] in ("encoder", "proj"):
+            raise ValueError(f"{name}: the layout covers token-only archs")
+        else:
+            i, path, dense = 0, "/".join(parts), _dense("", parts[-1])
+        entries.append((tuple(path.split("/")), i,
+                        (name, path, (1, 0) if dense else None)))
+    return tuple(e for _, _, e in sorted(entries, key=lambda t: t[:2]))
 
 
 def cache_from_jax(cache, device: str | torch.device = "cpu") -> dict:

@@ -44,6 +44,7 @@ class ClientConfig(NamedTuple):
     epochs: int = 5
     batch_size: int = 10
     lr: float = 0.01
+    momentum: float = 0.0
     #: L2 clip norm for the reported update delta; inf = no clipping.
     dp_clip: float = float("inf")
     #: Gaussian noise multiplier (noise std = dp_sigma * dp_clip); with an
@@ -118,9 +119,14 @@ def client_update(loss_fn: Callable[[dict, dict], torch.Tensor],
     validate_dp(cfg)
     steps = n // bs
     tail = n - steps * bs
-    opt = opt_mod.sgd(cfg.lr)
+    # non-float leaves (position ids, buffers) ride through untouched: only
+    # the float ones are differentiated and updated
+    buffers = {k: v for k, v in params.items() if not v.is_floating_point()}
+    params = {k: v for k, v in params.items() if v.is_floating_point()}
+    opt = opt_mod.sgd(cfg.lr, momentum=cfg.momentum)
     opt_state = opt.init(params)
-    grad_fn = grad_and_value(loss_fn)
+    grad_fn = grad_and_value(lambda p, batch: loss_fn({**p, **buffers},
+                                                      batch))
 
     def step(params, opt_state, idx):
         batch = {key: v[idx] for key, v in data.items()}
@@ -143,7 +149,7 @@ def client_update(loss_fn: Callable[[dict, dict], torch.Tensor],
         params, opt_state, tail_loss = step(params, opt_state,
                                             perm[steps * bs:])
         epoch_loss = (total + tail_loss) / (steps + 1)
-    return params, epoch_loss
+    return {**params, **buffers}, epoch_loss
 
 
 def local_phase(loss_fn: Callable, global_params: dict[str, torch.Tensor],

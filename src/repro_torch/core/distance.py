@@ -108,3 +108,10 @@ def sq_dists_to_points(w: torch.Tensor, points: torch.Tensor, *,
                        backend: str | bk.Backend = "stream") -> torch.Tensor:
     """(N, K) squared distances from each client row to each point row."""
     return bk.get_backend(backend).sq_dists_to_points(w, points)
+
+
+def dists_to_points(w: torch.Tensor, points: torch.Tensor, *,
+                    backend: str | bk.Backend = "stream") -> torch.Tensor:
+    """(N, K) distances: element-wise sqrt of :func:`sq_dists_to_points`."""
+    return torch.sqrt(torch.clamp(
+        sq_dists_to_points(w, points, backend=backend), min=0.0))

@@ -58,7 +58,23 @@ Two optional tiers compose with every engine:
   adversary mask, the quarantine fraction and the contamination bound,
   O(N·K) algebra over the ``med_d2`` the coalition round already has.
 
-Mesh mode waits for ROADMAP queue A.6.
+Three host-side hooks of :meth:`Federation.run` run between rounds, on
+values the round already read back, so they leave the numerics untouched:
+
+* ``snapshot_every=k`` + ``store`` — publish a round snapshot (θ, every
+  per-coalition barycenter, the round's assignment) into a
+  :class:`repro_torch.serve.ModelStore` at rounds ``r % k == 0`` and the
+  final round, for a serving front end to hot-swap.
+* ``ckpt_every=k`` + ``ckpt_dir`` — write a ``save_federation`` checkpoint
+  with the whole resume carry (θ, strategy state, barycenters, the
+  substrate's buffers and ledgers, the generator states) and the trace so
+  far; ``resume=True`` restores the latest and continues to the same
+  :class:`History` as an uninterrupted run.
+* ``metrics_every=k`` + ``sink`` — stream ``run_meta`` and per-round
+  ``round`` records (the reference's keys) into a
+  :mod:`repro_torch.obs.ledger` sink.
+
+Mesh mode waits for ROADMAP queue A.3.
 
 Randomness: each round draws every client's per-epoch shuffles, and round 0
 draws the Step-I permutation, from one ``torch.Generator`` in that order.
@@ -80,6 +96,7 @@ phase and the end of its server step.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, NamedTuple, Sequence
 
@@ -93,11 +110,16 @@ from repro_torch.core.client import (ClientConfig, dp_enabled, local_phase,
                                      privatize, validate_dp)
 from repro_torch.core.strategies import RoundMetrics, RoundResult, Strategy
 from repro_torch.models.zoo import FLModel
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import privacy as obs_privacy
 
 #: the port's stream tag of the DP noise (the reference splits that key off
 #: each client's own); the DP generator's seed is offset by it
 DP_STREAM = 0xD9A1
+#: trace fields the run ledger leaves out: host timings, which the
+#: reference's records do not have
+_UNLOGGED = ("local_s", "server_s")
 
 
 def bytes_per_param(w: torch.Tensor) -> int:
@@ -339,10 +361,24 @@ class _Substrate:
                                    self.n_groups, self.hierarchical,
                                    deadline=deadline)
 
+    #: the tensors a round leaves for the next (the resume carry)
+    CARRY: tuple[str, ...] = ("buf",)
+
+    def carry(self) -> dict:
+        return {"online": self.astate.online,
+                **{f: getattr(self, f) for f in self.CARRY}}
+
+    def load(self, carry: dict) -> None:
+        self.astate = sim_mod.AvailabilityState(online=carry["online"])
+        for f in self.CARRY:
+            setattr(self, f, carry[f])
+
 
 class _SemiAsync(_Substrate):
     """``semi_async``: availability and a deadline give each round's mask;
     absent rows keep their buffered update, ``tau`` rounds old."""
+
+    CARRY = ("buf", "tau")
 
     def __init__(self, fed, avail, device, model_bytes):
         super().__init__(fed, avail, device, model_bytes)
@@ -381,6 +417,9 @@ class _EventDriven(_Substrate):
     device pays its cycle's joules and retires once its energy is below the
     next cycle's cost.  Ledgers update in place.
     """
+
+    CARRY = ("buf", "energy", "spent", "alive", "next_t", "last_t",
+             "clock", "t_now")
 
     def __init__(self, fed, avail, device, model_bytes):
         super().__init__(fed, avail, device, model_bytes)
@@ -663,10 +702,129 @@ class Federation:
                                       lambda: noise["attack"].draw(r, w))
         return w, losses
 
+    # -- host-side hooks ------------------------------------------------------
+
+    @staticmethod
+    def _fires(r: int, every: int | None, total: int) -> bool:
+        """Hook cadence: every ``every`` rounds from round 0, plus the final
+        round (the serve/resume consumer must always see the finished run)."""
+        return every is not None and (r % every == 0 or r == total)
+
+    def _publish(self, store, round_: int, gp, bary, row) -> None:
+        store.publish(round_, pytree.to_ref_tree(gp, self.model.layout),
+                      bary, assignment=row["assignment"],
+                      counts=row["counts"],
+                      extra_meta={"engine": self.cfg.engine,
+                                  "method": self.cfg.method,
+                                  "n_clients": self.cfg.n_clients})
+
+    def _run_meta_record(self, sub, model_bytes: int) -> dict:
+        """The ledger's ``run_meta`` header (first record of every run); on
+        the substrate engines it carries the per-device cycle seconds the
+        timeline draws device busy spans from."""
+        cfg = self.cfg
+        steps = self._n_steps() + 1
+        rec = {"schema": obs_ledger.OBS_SCHEMA, "kind": obs_ledger.RUN_META,
+               "engine": cfg.engine, "method": cfg.method,
+               "n_clients": cfg.n_clients,
+               "n_groups": self.strategy.n_groups, "steps": steps}
+        if cfg.fleet_size is not None:
+            rec["fleet_size"] = cfg.fleet_size
+        if self.attack is not None:
+            rec.update(
+                attack=self.attack.name, attack_params=self.attack.params,
+                adv_frac=cfg.adv_frac, rho_adv=cfg.rho_adv,
+                n_adversaries=int(np.asarray(self.adversaries).sum()))
+        if dp_enabled(cfg.client):
+            eps = obs_privacy.gaussian_epsilon(cfg.client.dp_sigma, steps)
+            rec.update(
+                dp_sigma=cfg.client.dp_sigma,
+                # null = unconstrained (inf is not valid RFC 8259 JSON)
+                dp_clip=(cfg.client.dp_clip
+                         if math.isfinite(cfg.client.dp_clip) else None),
+                dp_epsilon=eps if math.isfinite(eps) else None)
+        if sub is not None:
+            rec.update(fleet=cfg.sim.fleet, scenario=cfg.sim.scenario,
+                       model_bytes=int(model_bytes),
+                       device_time_s=sub.dev_time)
+        return rec
+
+    def _emit_rows(self, sink, rows: list, r_start: int, every: int,
+                   total: int) -> None:
+        """One ``round`` record per trace row the cadence selects (row i is
+        round ``r_start + i``), with the reference's keys."""
+        for i, row in enumerate(rows):
+            r = r_start + i
+            if not self._fires(r, every, total):
+                continue
+            rec = {"schema": obs_ledger.OBS_SCHEMA,
+                   "kind": obs_ledger.ROUND, "round": r}
+            rec.update({k: v for k, v in row.items() if k not in _UNLOGGED})
+            sink.emit(rec)
+
+    def _save_ckpt(self, ckpt_dir: str, round_: int, gp, state,
+                   carry: dict, rows: list) -> None:
+        from repro_torch import checkpoint
+
+        trace = {k: np.stack([row[k] for row in rows]) for k in rows[0]}
+        checkpoint.save_federation(
+            ckpt_dir, round_, pytree.to_ref_tree(gp, self.model.layout),
+            state, carry=carry, trace=trace,
+            extra_meta={"engine": self.cfg.engine,
+                        "method": self.cfg.method,
+                        "rounds": self.cfg.rounds})
+
+    def _restore_ckpt(self, ckpt_dir: str, like: dict, device):
+        """Latest-checkpoint restore: ``(rounds done, θ params, strategy
+        state, carry, trace rows)``, or None when the directory holds no
+        checkpoint yet (a resume flag on a first run is a fresh start).
+
+        θ comes back from the snapshot's reference-named ``global`` tree,
+        the strategy state through a template of its structure (the state
+        of a one-column W with the identity permutation: no draw), and the
+        carry by its leaf names, each tensor in its recorded dtype on the
+        run's device.
+        """
+        from repro_torch import checkpoint
+
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is None:
+            return None
+        tree, meta = checkpoint.load(ckpt_dir, step, device=device)
+        if meta.get("schema") != checkpoint.FEDERATION_SCHEMA:
+            raise ValueError(
+                f"{ckpt_dir} step {step} is not a federation checkpoint "
+                f"(schema={meta.get('schema')!r})")
+        if meta.get("engine") != self.cfg.engine:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} was written by engine "
+                f"{meta.get('engine')!r}; cannot resume with "
+                f"{self.cfg.engine!r}")
+        if "carry" not in tree or "trace" not in tree:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} step {step} has no resume "
+                f"payload (published snapshot instead of ckpt_every?)")
+        gp = {k: v.to(like[k].dtype) for k, v in pytree.from_ref_tree(
+            tree["global"], self.model.layout).items()}
+        n = self.cfg.n_clients
+        template = self.strategy.init_state(
+            torch.zeros((n, 1), device=device),
+            perm=torch.arange(n, device=device))
+        state = checkpoint.from_indexed(tree["strategy"], template)
+        trace = {k: v.cpu().numpy() for k, v in tree["trace"].items()}
+        rows = [{k: v[i] for k, v in trace.items()}
+                for i in range(step + 1)]
+        return int(step), gp, state, tree["carry"], rows
+
     def run(self, init_params: dict[str, torch.Tensor],
             client_data: dict[str, torch.Tensor], *,
             generator: torch.Generator | None = None,
-            draws: Draws | None = None) -> tuple[dict, History]:
+            draws: Draws | None = None,
+            snapshot_every: int | None = None, store=None,
+            ckpt_every: int | None = None, ckpt_dir: str | None = None,
+            resume: bool = False,
+            metrics_every: int | None = None,
+            sink: obs_ledger.Sink | None = None) -> tuple[dict, History]:
         """Run the full federation; returns (final θ params, History).
 
         Args:
@@ -678,16 +836,63 @@ class Federation:
             permutation are drawn from, and whose seed seeds the other
             streams (ignored for what ``draws`` injects).
           draws: injected randomness (:class:`Draws`).
+          snapshot_every: publish a serving snapshot (θ + per-coalition
+            barycenters + assignment) into ``store`` at every round
+            ``r % snapshot_every == 0`` plus the final round.
+          store: a :class:`repro_torch.serve.ModelStore` (required with
+            ``snapshot_every``).
+          ckpt_every: write a resumable ``save_federation`` checkpoint into
+            ``ckpt_dir`` on the same cadence rule.
+          ckpt_dir: checkpoint directory (required with ``ckpt_every`` or
+            ``resume``; rejected without either).
+          resume: restore the latest checkpoint under ``ckpt_dir`` and
+            continue to the uninterrupted run's History (an empty directory
+            is a fresh start).  The same ``generator`` seed (or ``draws``)
+            must be given: the substrate and cohort draws are made again
+            from it.
+          metrics_every: stream a ``round`` record into ``sink`` every
+            ``metrics_every`` rounds (plus round 0 and the final round).
+            Requires ``sink``; a ``sink`` alone defaults to every round.
+          sink: a :class:`repro_torch.obs.Sink`; the run opens with one
+            ``run_meta`` record.  The caller owns the sink's lifetime.
         """
         if generator is None and draws is None:
             raise ValueError("run needs a generator or injected draws")
+        if snapshot_every is not None:
+            if snapshot_every < 1:
+                raise ValueError(
+                    f"snapshot_every={snapshot_every} must be >= 1")
+            if store is None:
+                raise ValueError("snapshot_every requires a store "
+                                 "(repro_torch.serve.ModelStore)")
+        elif store is not None:
+            raise ValueError("store given without snapshot_every")
+        if ckpt_every is not None:
+            if ckpt_every < 1:
+                raise ValueError(f"ckpt_every={ckpt_every} must be >= 1")
+            if ckpt_dir is None:
+                raise ValueError("ckpt_every requires ckpt_dir")
+        elif ckpt_dir is not None and not resume:
+            raise ValueError("ckpt_dir given without ckpt_every or resume "
+                             "would never write a checkpoint")
+        if resume and ckpt_dir is None:
+            raise ValueError("resume requires ckpt_dir")
+        if metrics_every is not None:
+            if metrics_every < 1:
+                raise ValueError(
+                    f"metrics_every={metrics_every} must be >= 1")
+            if sink is None:
+                raise ValueError("metrics_every requires a sink "
+                                 "(repro_torch.obs.make_sink)")
+        elif sink is not None:
+            metrics_every = 1                   # a sink alone: every round
         cfg, strategy = self.cfg, self.strategy
         layout = self.model.layout
         device = next(iter(client_data.values())).device
         n_local = next(iter(client_data.values())).shape[1]
         steps = self._n_steps()
-        sub = self._substrate(steps, generator, draws, device,
-                              pytree.tree_bytes(init_params))
+        model_bytes = pytree.tree_bytes(init_params)
+        sub = self._substrate(steps, generator, draws, device, model_bytes)
         cohorts = self._cohort_schedule(steps, generator, draws, device)
         adv_fleet = None if self.adversaries is None else torch.tensor(
             self.adversaries, dtype=torch.float32, device=device)
@@ -698,9 +903,27 @@ class Federation:
                      None if draws is None else draws.attack_noise,
                      self._stream(sim_mod.ATTACK_STREAM, generator, device)
                      if adv_fleet is not None else None)}
+        gens = {"run": generator, **{k: nz.generator
+                                     for k, nz in noise.items()}}
+        gens = {k: g for k, g in gens.items() if g is not None}
         rows = []
         gp, state, prev_assign, prev_bary = init_params, None, None, None
-        for r in range(steps + 1):
+        r_done = -1
+        restored = (self._restore_ckpt(ckpt_dir, init_params, device)
+                    if resume else None)
+        if restored is not None:
+            r_done, gp, state, carry, rows = restored
+            prev_assign, prev_bary = carry["prev_assign"], carry["bary"]
+            if sub is not None:
+                sub.load(carry["sub"])
+            for k, g in gens.items():
+                g.set_state(carry["rng"][k].cpu())
+        if sink is not None:
+            sink.emit(self._run_meta_record(sub, model_bytes))
+            # on resume the restored rows are re-emitted, so the ledger is
+            # complete from round 0 whichever checkpoint the run resumed at
+            self._emit_rows(sink, rows, 0, metrics_every, steps)
+        for r in range(r_done + 1, steps + 1):
             t0 = time.perf_counter()
             ids = None if cohorts is None else cohorts[r]
             adv = adv_fleet if ids is None or adv_fleet is None \
@@ -750,7 +973,36 @@ class Federation:
             row.update(self._attack_row(res, adv))
             rows.append({k: v.detach().cpu().numpy() if torch.is_tensor(v)
                          else np.asarray(v) for k, v in row.items()})
+            if r == r_done + 1 and rows[0].keys() != rows[-1].keys():
+                raise ValueError(
+                    f"checkpoint trace metrics {sorted(rows[0])} do not "
+                    f"match this run's {sorted(rows[-1])}")
             prev_assign, prev_bary = assignment, bary
+            if sink is not None:
+                self._emit_rows(sink, rows[-1:], r, metrics_every, steps)
+            if self._fires(r, snapshot_every, steps):
+                self._publish(store, r, gp, bary, rows[-1])
+            if self._fires(r, ckpt_every, steps):
+                carry = {"bary": bary, "prev_assign": assignment,
+                         "rng": {k: g.get_state() for k, g in gens.items()}}
+                if sub is not None:
+                    carry["sub"] = sub.carry()
+                self._save_ckpt(ckpt_dir, r, gp, state, carry, rows)
         trace = Trace(**{f: np.stack([row[f] for row in rows])
                          for f in Trace._fields if f in rows[0]})
         return gp, History(trace=trace)
+
+
+def run_federation(init_params: dict[str, torch.Tensor], model: FLModel,
+                   eval_fn: Callable[[dict], torch.Tensor],
+                   client_data: dict[str, torch.Tensor],
+                   cfg: FederationConfig, *,
+                   generator: torch.Generator | None = None,
+                   draws: Draws | None = None,
+                   strategy: Strategy | None = None) -> History:
+    """Compatibility entry point: build a :class:`Federation` and run it
+    (the reference's ``run_federation``, with the port's generator or
+    injected draws in place of its key)."""
+    _, hist = Federation(model, eval_fn, cfg, strategy=strategy).run(
+        init_params, client_data, generator=generator, draws=draws)
+    return hist

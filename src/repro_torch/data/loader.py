@@ -1,5 +1,8 @@
-"""Federated dataset assembly (numpy; a copy of ``repro.data.loader``)."""
+"""Batching helpers and federated dataset assembly (numpy; a copy of
+``repro.data.loader``)."""
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 
@@ -11,6 +14,18 @@ def client_datasets(x: np.ndarray, y: np.ndarray, index_matrix: np.ndarray):
     n_local)} ready for the vmapped ClientUpdate.
     """
     return {"x": x[index_matrix], "y": y[index_matrix]}
+
+
+def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0,
+            drop_remainder: bool = True
+            ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Shuffled ``(x, y)`` minibatches of one pass (numpy's seeded order)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(x))
+    stop = (len(x) // batch_size) * batch_size if drop_remainder else len(x)
+    for i in range(0, stop, batch_size):
+        b = idx[i:i + batch_size]
+        yield x[b], y[b]
 
 
 def label_histogram(y: np.ndarray, index_matrix: np.ndarray,

@@ -83,6 +83,13 @@ def digits(n: int, seed: int = 0, noise: float = 0.25,
     return x[..., None], y
 
 
+def digits_split(n_train: int = 60000, n_test: int = 10000, seed: int = 0):
+    """Train/test split mirroring MNIST's 60k/10k layout."""
+    xtr, ytr = digits(n_train, seed=seed)
+    xte, yte = digits(n_test, seed=seed + 1)
+    return (xtr, ytr), (xte, yte)
+
+
 # --- real MNIST idx loader (used if files are provided) ----------------------
 
 def _read_idx(path: str) -> np.ndarray:

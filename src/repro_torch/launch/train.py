@@ -19,8 +19,17 @@ trains a cohort of ``--clients`` devices sampled from a fleet of N
 (``scan``/``python``).  ``--attack`` with ``--adv-frac`` and ``--rho-adv``
 compromises a fraction of the fleet and adds the attack block;
 ``--dp-clip`` and ``--dp-sigma`` turn on the DP client path and add the DP
-block with its epsilon.  It prints the reference's JSON summary keys plus
-``device``.
+block with its epsilon.  ``--model transformer_tiny`` federates the bf16
+row-token transformer (W a bf16 (N, 27,626) matrix).  The host side:
+``--snapshot-dir`` (``--snapshot-every``, ``--snapshot-keep``) publishes
+each round's θ, coalition barycenters and assignment into a model store
+that ``serve --mode fl`` serves; ``--ckpt-dir`` (``--ckpt-every``)
+writes resumable checkpoints and ``--resume`` continues from the latest;
+``--metrics-out`` (``--metrics-every``) streams the run ledger as JSONL,
+``--trace-out`` writes its simulated-time Chrome trace (substrate
+engines), ``--profile-dir`` a ``torch.profiler`` Chrome trace of the run
+and ``--out`` the summary as JSON.  It prints the reference's JSON summary
+keys plus ``device``.
 
 ``--mode pretrain`` trains an LM of the zoo (``--arch``, default hymba-1.5b
 at full size; ``--reduced`` for the 2-layer f32 variant) on
@@ -66,11 +75,18 @@ Examples:
       --fleet cellular-flaky --fleet-size 1048576 --rounds 3
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
       --attack sign_flip --adv-frac 0.2 --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl --rounds 10 \
+      --snapshot-dir /tmp/fl-store --snapshot-every 2 \
+      --ckpt-dir /tmp/fl-ckpt --ckpt-every 5
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
+      --model transformer_tiny --rounds 3
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
@@ -125,6 +141,24 @@ def _strategy_extras(args) -> dict:
 def _finite(v: float, ndigits: int) -> float | None:
     """Round for JSON, mapping non-finite values to null (RFC 8259)."""
     return round(float(v), ndigits) if np.isfinite(v) else None
+
+
+def _profiler(profile_dir: str | None, device: torch.device):
+    """A ``torch.profiler`` context that writes a Chrome trace of the run
+    into ``profile_dir`` (real hardware time; the simulated-time view is
+    ``--trace-out``), or a null context."""
+    if profile_dir is None:
+        return contextlib.nullcontext()
+    from torch import profiler
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(profiler.ProfilerActivity.CUDA)
+    return profiler.profile(
+        activities=activities,
+        on_trace_ready=lambda prof: prof.export_chrome_trace(
+            os.path.join(profile_dir, "trace.json")))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -203,13 +237,46 @@ def run_fl(args) -> dict:
         args.method, n_clients=args.clients, n_coalitions=args.coalitions,
         backend=args.backend, **extras)
     model = zoo_mod.make_model(args.model)
-    # one CPU generator per run: the CNN init, then the federation's draws
+    # one CPU generator per run: the model's init, then the federation's
+    # draws
     gen = torch.Generator().manual_seed(args.seed)
     params = model.init(gen, device=device)
+    store = None
+    if args.snapshot_dir is not None:
+        from repro_torch.serve import ModelStore
+
+        store = ModelStore(args.snapshot_dir, keep=args.snapshot_keep)
     t0 = time.time()
     fed = Federation(model, lambda p: model.accuracy(p, xte_t, yte_t), cfg,
                      strategy=strategy)
-    gp, hist = fed.run(params, cd, generator=gen)
+    # --ckpt-dir without --ckpt-every still checkpoints (round 0 + final);
+    # Federation.run rejects a ckpt_dir that would never be written to
+    ckpt_every = args.ckpt_every
+    if args.ckpt_dir is not None and ckpt_every is None and not args.resume:
+        ckpt_every = args.rounds
+    # the run ledger: --metrics-out streams it as JSONL; --trace-out also
+    # keeps it in memory for the simulated-time trace after the run
+    from repro_torch import obs
+
+    sinks, mem = [], None
+    if args.metrics_out:
+        sinks.append(obs.make_sink("jsonl", path=args.metrics_out))
+    if args.trace_out:
+        mem = obs.InMemorySink()
+        sinks.append(mem)
+    sink = obs.tee(sinks)
+    if args.metrics_every is not None and sink is None:
+        raise SystemExit("--metrics-every requires --metrics-out or "
+                         "--trace-out")
+    with _profiler(args.profile_dir, device):
+        gp, hist = fed.run(
+            params, cd, generator=gen,
+            snapshot_every=(args.snapshot_every if store is not None
+                            else None),
+            store=store, ckpt_every=ckpt_every, ckpt_dir=args.ckpt_dir,
+            resume=args.resume, metrics_every=args.metrics_every, sink=sink)
+    if sink is not None:
+        sink.close()
     out = {"mode": "fl", "method": args.method, "engine": args.engine,
            "model": args.model, "sketch": args.sketch,
            "regime": args.regime, "scenario": args.scenario, "rho": args.rho,
@@ -232,6 +299,28 @@ def run_fl(args) -> dict:
     if args.fleet_size is not None:
         out["fleet_size"] = args.fleet_size
         out["cohort_size"] = args.clients
+    if args.metrics_out:
+        out["metrics_out"] = args.metrics_out
+    if args.profile_dir:
+        out["profile_dir"] = args.profile_dir
+    if args.trace_out:
+        from repro_torch.obs import timeline
+
+        try:
+            trace = timeline.write_trace(args.trace_out, mem.records)
+        except ValueError as e:
+            raise SystemExit(f"--trace-out: {e}") from None
+        out["trace_out"] = args.trace_out
+        out["trace_events"] = len(trace["traceEvents"])
+    if store is not None:
+        out["snapshot_dir"] = args.snapshot_dir
+        out["published_rounds"] = store.rounds()
+    if args.ckpt_dir is not None:
+        from repro_torch import checkpoint
+
+        out["ckpt_dir"] = args.ckpt_dir
+        out["ckpt_rounds"] = checkpoint.available_steps(args.ckpt_dir)
+        out["resumed"] = bool(args.resume)
     if hist.sim_times is not None:      # the IoT-substrate accounting
         out.update({
             "fleet": args.fleet,
@@ -299,14 +388,17 @@ def run_pretrain(args) -> dict:
         seed=args.seed)).to(device)
     losses, step_s = [], []
     t0 = time.time()
-    for i in range(args.steps):
-        t_step = time.perf_counter()
-        batch = {"tokens": toks[i * args.batch_size:(i + 1) * args.batch_size]}
-        losses.append(float(step_fn(model, opt_state, batch)))  # synchronises
-        step_s.append(time.perf_counter() - t_step)
-        if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
-            print(f"step {i:5d}  loss {losses[-1]:.4f}  "
-                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    with _profiler(args.profile_dir, device):
+        for i in range(args.steps):
+            t_step = time.perf_counter()
+            batch = {"tokens": toks[i * args.batch_size:
+                                    (i + 1) * args.batch_size]}
+            # float() synchronises
+            losses.append(float(step_fn(model, opt_state, batch)))
+            step_s.append(time.perf_counter() - t_step)
+            if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
+                print(f"step {i:5d}  loss {losses[-1]:.4f}  "
+                      f"({(time.time() - t0) / (i + 1):.2f}s/step)")
     out = {"mode": "pretrain", "arch": cfg.name, "losses": losses,
            "loss_first": losses[0], "loss_last": losses[-1],
            "wall_s": round(time.time() - t0, 1),
@@ -421,6 +513,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Gaussian noise multiplier of the DP client path "
                          "(noise std = dp_sigma * dp_clip); the composed "
                          "epsilon lands in the summary")
+    # fl: checkpointing + serving snapshots (the producer half of the
+    # train/serve pair; repro_torch.launch.serve --mode fl is the consumer)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="write resumable federation checkpoints here")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint cadence in rounds (requires "
+                         "--ckpt-dir; the final round is always saved; "
+                         "default with --ckpt-dir: round 0 + final only)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint under --ckpt-dir "
+                         "and continue to the uninterrupted run's history")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="publish serving snapshots (theta + coalition "
+                         "barycenters + routing assignment) into this "
+                         "model store directory")
+    ap.add_argument("--snapshot-every", type=int, default=1,
+                    help="publish cadence in rounds (with --snapshot-dir)")
+    ap.add_argument("--snapshot-keep", type=int, default=None,
+                    help="retain only the newest N snapshots")
+    # fl: observability (repro_torch.obs)
+    ap.add_argument("--metrics-out", default=None,
+                    help="stream the per-round run ledger to this JSONL "
+                         "file while training; tail it live")
+    ap.add_argument("--metrics-every", type=int, default=None,
+                    help="ledger cadence in rounds (default 1; round 0 and "
+                         "the final round always emit)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a simulated-time Chrome trace-event JSON "
+                         "(open in https://ui.perfetto.dev); needs "
+                         "--engine semi_async or event_driven")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the run "
+                         "here (real hardware time, vs. the simulated-time "
+                         "--trace-out)")
     # pretrain
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -435,12 +561,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=10)
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="also write the summary JSON to this file")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    return run_fl(args) if args.mode == "fl" else run_pretrain(args)
+    out = run_fl(args) if args.mode == "fl" else run_pretrain(args)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({k: v for k, v in out.items() if k not in _UNPRINTED},
+                      f, default=float)
+    return out
 
 
 if __name__ == "__main__":

@@ -5,14 +5,16 @@
 parameters onto the columns of the reference's client weight matrix
 (:mod:`repro_torch.core.pytree`).
 
-Ported so far: ``cnn``, the paper's MNIST CNN (§IV.D).  The reference's
-``transformer_tiny`` waits for ROADMAP queue A.4.
+  ``cnn``               — the paper's MNIST CNN (§IV.D), f32; the default.
+  ``transformer_tiny``  — bf16 row-token transformer with an int32
+                          ``pos_ids`` buffer; exercises native-dtype
+                          federation (a bf16 W) and the buffer contract.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import cnn
+from repro_torch.models import cnn, tiny_transformer
 
 
 class FLModel(NamedTuple):
@@ -51,3 +53,7 @@ def make_model(name: str) -> FLModel:
 
 register_model(FLModel(name="cnn", init=cnn.init, loss_fn=cnn.loss_fn,
                        accuracy=cnn.accuracy, layout=cnn.REF_LAYOUT))
+register_model(FLModel(name="transformer_tiny", init=tiny_transformer.init,
+                       loss_fn=tiny_transformer.loss_fn,
+                       accuracy=tiny_transformer.accuracy,
+                       layout=tiny_transformer.REF_LAYOUT))

@@ -23,6 +23,9 @@ from repro.core import strategies as jstr
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import coalitions as tco
 from repro_torch.core import strategies as tstr
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 TOL = 1e-6
 N, D = 7, 300

@@ -43,9 +43,13 @@ from repro_torch.core.server import Federation, FederationConfig
 from repro_torch.models import zoo
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import privacy as tprivacy
-from test_torch_federation import (EPOCHS, K, N_CLIENTS, N_TEST, ROUNDS,
+from test_torch_federation import (EPOCHS, K, N_CLIENTS, N_TEST,
+                                   PARITY_THREADS, ROUNDS,
                                    _assert_theta_close, _data, _run_both,
                                    reference_draws)
+from repro_torch.testing import cap_cpu_threads, torch_threads
+
+cap_cpu_threads()
 
 RTOL = 1e-6
 ATTACKS = ("gaussian_noise", "label_flip", "scale_update", "sign_flip")
@@ -187,8 +191,9 @@ def test_zero_adversaries_equal_the_clean_run_bit_for_bit(engine, sim_kw):
                                                     2)])
 def test_attacked_federation_matches_reference(attack, adv_frac, n_adv):
     fed_kw = {"attack": attack, "adv_frac": adv_frac}
-    (theta, hist), (theta_ref, jhist) = _run_both(
-        fed_kw=fed_kw, attack_noise=attack == "gaussian_noise")
+    with torch_threads(PARITY_THREADS):
+        (theta, hist), (theta_ref, jhist) = _run_both(
+            fed_kw=fed_kw, attack_noise=attack == "gaussian_noise")
     adv = np.asarray(hist.adversary)
     assert adv.shape == (ROUNDS, N_CLIENTS)
     assert adv.sum(axis=1).tolist() == [n_adv] * ROUNDS

@@ -32,6 +32,9 @@ from repro_torch.data import synthetic as tsynthetic
 from repro_torch.models import cnn as tcnn
 from repro_torch.optim import optimizers as topt
 from repro_torch.sim import scenarios as tscenarios
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 #: f32 training drifts apart between XLA's and PyTorch's convolutions; one
 #: client_update of 6 SGD steps moved W by at most 5.8e-5 of max|W| apart

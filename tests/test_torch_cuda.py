@@ -50,6 +50,15 @@ spend a whole number of its cycle cost within the budget; the attack hooks
 on card tensors must equal their CPU results bit for bit (elementwise
 f32), and the DP path must bound every delta norm by the clip and match
 the CPU with the same noise.
+
+The host side on the card: ``transformer_tiny``'s round on a bf16
+(10, 27,626) W (a local phase on the card) must give ``stream``'s
+assignment and centers with θ within 5e-6 of its max, launching each
+fused kernel once; the ``BatchServer``'s CUDA graph must answer as the
+eager forward through each routed model does (within 1e-5 of the max),
+capture once, and keep serving after in-place swaps; a federation on the
+card checkpointed at round 1 and resumed must reach the uninterrupted
+run's assignments and θ.
 """
 import numpy as np
 import pytest
@@ -68,6 +77,9 @@ from repro_torch.kernels import segment_mean as tsm
 from repro_torch import sim as tsim
 from repro_torch.core import client as tclient
 from repro_torch.sim import clock as tclock
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 TOL = 5e-6
 SHAPES = [(10, 3, 1000, "float32"), (7, 2, 4097, "float32"),
@@ -860,3 +872,120 @@ def test_cuda_encoder_through_the_kernel_matches_cpu():
                                rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+def _tiny_w(n=10, seed=0):
+    """A bf16 (n, 27,626) W from one local phase of transformer_tiny on the
+    card, each client's shard a cluster of its own label."""
+    from repro_torch.core import pytree
+    from repro_torch.data import synthetic
+    from repro_torch.models import zoo
+
+    model = zoo.make_model("transformer_tiny")
+    params = model.init(torch.Generator().manual_seed(seed), device="cuda")
+    x, y = synthetic.digits(n * 20, seed=seed)
+    order = np.argsort(y % 3, kind="stable").reshape(n, 20)
+    data = {"x": torch.from_numpy(x[order]).cuda(),
+            "y": torch.from_numpy(y[order]).cuda()}
+    perms = torch.stack([torch.stack([torch.randperm(
+        20, generator=torch.Generator().manual_seed(i))]) for i in range(n)])
+    stacked, _ = tclient.local_phase(model.loss_fn, params, data,
+                                     perms.cuda(),
+                                     tclient.ClientConfig(epochs=1))
+    return pytree.client_matrix(stacked, model.layout)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_transformer_round_matches_stream():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w = _tiny_w()
+    assert w.dtype == torch.bfloat16 and w.shape == (10, 27_626)
+    state = tco.init_centers(w, 3, perm=torch.arange(10))
+    tops.reset_launch_counts()
+    rc = tco.run_round(w, state, backend="cuda")
+    torch.cuda.synchronize()
+    moved = {name: c for name, c in tops.launch_counts().items() if c}
+    rs = tco.run_round(w, state, backend="stream")
+    assert moved == {"center_sq_dists": 1, "fused_coalition_stats": 1}
+    assert torch.equal(rc.assignment, rs.assignment)
+    assert torch.equal(rc.new_center_idx, rs.new_center_idx)
+    _close(rc.theta, rs.theta)
+    _close(rc.barycenters, rs.barycenters)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_server_graph_matches_eager():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import pytree
+    from repro_torch.models import cnn
+    from repro_torch.serve import BatchServer, Snapshot
+
+    def snapshot(r):
+        g = torch.Generator().manual_seed(r)
+        params = cnn.init(g)
+        theta = pytree.flatten(params, cnn.REF_LAYOUT)
+        bary = theta[None] + 0.05 * torch.randn((3, theta.shape[0]),
+                                                generator=g)
+        return Snapshot(round=r, global_params=pytree.to_ref_tree(
+            params, cnn.REF_LAYOUT), barycenters=bary.cuda(),
+            assignment=(np.arange(10) + r) % 3, counts=None, meta={})
+
+    server = BatchServer(cnn.apply, cnn.REF_LAYOUT, snapshot(0),
+                         device="cuda")
+    ptrs = {k: v.data_ptr() for k, v in server._stacked.items()}
+    ids = np.array(list(range(10)) + [-1, 42])
+    x = torch.randn((12, 28, 28, 1), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    for r in range(3):
+        if r:
+            server.swap(snapshot(r))
+        got = server.serve(ids, x)
+        rows = server.routing.model_rows(ids)
+        with torch.no_grad():
+            for q, row in enumerate(rows):
+                want = cnn.apply(server.model_params(int(row)), x)[q]
+                err = float((got[q] - want).abs().max())
+                assert err <= 1e-5 * float(want.abs().max()), (r, q, err)
+    assert server.compile_count == 1 and server.round == 2
+    assert {k: v.data_ptr() for k, v in server._stacked.items()} == ptrs
+
+
+@pytest.mark.cuda
+def test_cuda_federation_resume_matches_uninterrupted(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import shutil
+
+    from repro_torch.core.server import Federation, FederationConfig
+    from repro_torch.models import zoo
+
+    def loss(p, batch):
+        return torch.nn.functional.cross_entropy(
+            batch["x"] @ p["w"] + p["b"], batch["y"])
+
+    model = zoo.FLModel(name="linear", init=None, loss_fn=loss,
+                        accuracy=None,
+                        layout=(("b", "b", None), ("w", "w", None)))
+    rng = np.random.default_rng(0)
+    data = {"x": torch.from_numpy(rng.standard_normal((6, 16, 8)).astype(
+        np.float32)).cuda(),
+        "y": torch.from_numpy(rng.integers(0, 4, (6, 16))).cuda()}
+    params = {"w": torch.zeros((8, 4), device="cuda"),
+              "b": torch.zeros(4, device="cuda")}
+    cfg = FederationConfig(n_clients=6, n_coalitions=2, rounds=3,
+                           backend="cuda",
+                           client=tclient.ClientConfig(epochs=1,
+                                                       batch_size=4))
+
+    def run(**kw):
+        return Federation(model, lambda p: p["w"].sum(), cfg).run(
+            params, data, generator=torch.Generator().manual_seed(3), **kw)
+
+    gp, hist = run()
+    run(ckpt_every=1, ckpt_dir=str(tmp_path))
+    shutil.rmtree(tmp_path / "step_00000002")
+    gp2, hist2 = run(ckpt_dir=str(tmp_path), resume=True)
+    assert hist2.assignments == hist.assignments
+    _close(gp2["w"], gp["w"])

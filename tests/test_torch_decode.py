@@ -41,6 +41,9 @@ from repro_torch.configs import registry as treg
 from repro_torch.launch import steps
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tf
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, S, STEPS = 2, 12, 4
 LOGIT_ATOL = 1e-4

@@ -33,6 +33,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import reg_sweep
 from repro_torch.kernels import segment_mean as tsm
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 F32, BF16 = torch.float32, torch.bfloat16
 #: a base address as the caching allocator hands it out (512-byte aligned)

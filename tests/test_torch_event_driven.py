@@ -31,6 +31,9 @@ from repro_torch.core.server import Federation, FederationConfig
 from repro_torch.models import zoo
 from test_torch_federation import (EPOCHS, K, N_CLIENTS, N_TEST, ROUNDS,
                                    _assert_theta_close, _data, _run_both)
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 BUDGET = 60.0
 EVENTS = 5

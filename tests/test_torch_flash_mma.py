@@ -26,6 +26,9 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("chip_smoke",

@@ -29,6 +29,9 @@ from repro.core import coalitions as jco
 from repro_torch.core import barycenter as tbary
 from repro_torch.core import coalitions as tco
 from repro_torch.core import instrument
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 CASES = [("stream", True), ("dot", True), ("cuda", True), ("stream", False),
          ("dot", False), ("cuda", False)]

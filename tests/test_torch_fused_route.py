@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_round as tfr
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 F32, BF16 = torch.float32, torch.bfloat16
 #: a base address as the caching allocator hands it out (512-byte aligned)

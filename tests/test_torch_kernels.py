@@ -30,6 +30,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_round as tfr
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import segment_mean as tsm
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = {"float32": 5e-6, "bfloat16": 5e-3}
@@ -216,4 +219,9 @@ def test_port_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "repro_torch.launch.train" in modules
+    for name in ("repro_torch.launch.train", "repro_torch.launch.serve",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.obs.ledger", "repro_torch.obs.timeline",
+                 "repro_torch.serve.frontend", "repro_torch.serve.store",
+                 "repro_torch.models.tiny_transformer"):
+        assert name in modules, name

@@ -27,6 +27,9 @@ from repro.models import moe as jmoe
 from repro_torch import carry
 from repro_torch.configs import registry as treg
 from repro_torch.models import moe
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ARCHS = ["moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"]
 WIDE = {"n_experts": 8, "top_k": 3}

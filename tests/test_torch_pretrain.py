@@ -37,6 +37,9 @@ from repro_torch.configs import registry as treg
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import optimizers as topt
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 

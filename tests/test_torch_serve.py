@@ -9,8 +9,9 @@ reference's (``repro.launch.serve``), on the CPU.
 - ``--mode lm --device cpu --reduced`` prints one JSON line with the
   reference CLI's keys plus ``device``, and with the reference's draws
   given (its init, its modal stub) the reference's tokens; ``--mode fl``
-  exits non-zero (it waits for ROADMAP queue A.5), and so does a run
-  without ``--device cpu`` on a host without a card.
+  without ``--store-dir`` exits non-zero (tests/test_torch_serve_fl.py
+  covers the mode), and so does a run without ``--device cpu`` on a host
+  without a card.
 """
 import argparse
 import json
@@ -27,6 +28,9 @@ from repro.models import transformer as jtf
 from repro_torch import carry
 from repro_torch.configs import registry as treg
 from repro_torch.launch import serve
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, PROMPT, GEN = 2, 8, 5
 
@@ -112,7 +116,7 @@ def test_cli_prints_the_reference_keys_plus_device(arch, capsys):
 
 
 def test_cli_fl_mode_exits_nonzero():
-    with pytest.raises(SystemExit, match="A.5") as exc:
+    with pytest.raises(SystemExit, match="--store-dir") as exc:
         serve.main(["--mode", "fl", "--device", "cpu"])
     assert exc.value.code not in (0, None)
 

@@ -29,6 +29,9 @@ from repro.sim import scenarios as jscenarios
 from repro_torch import carry
 from repro_torch import sim as tsim
 from repro_torch.sim import scenarios as tscenarios
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 N = 16
 FLEETS = ("ideal", "uniform", "lognormal-edge", "cellular-flaky")

@@ -33,6 +33,9 @@ from repro_torch.core import instrument
 from repro_torch.core import sketch as tsk
 from repro_torch.core import strategies as tstrat
 from repro_torch.launch import train as ttrain
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 PAIRS = [("stream", "xla"), ("dot", "dot"), ("cuda", "pallas")]
 NAMES = ["rproj", "countsketch"]

@@ -39,6 +39,9 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers, ssm
 from repro_torch.models import transformer as tf
+from repro_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 #: (B, Hq, Hkv, Sq, Skv, Dh, causal, window, dtype): three of the
 #: reference's sweep shapes, for the Pallas kernel in interpret mode
