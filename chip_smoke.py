@@ -147,6 +147,23 @@ In order, it
      set to 0 just before, held to its plain version, and the kernel timed
      beside its bound and ``torch.cdist(w, w)**2``; the sketch builds
      timed at this D and at the main path's;
+  6j. the sharded federation at world 1 (phase j), counters set to 0 just
+     before each run: ``train --mode fl --mesh data=1 --rounds 3`` at the
+     defaults (each fused kernel once a round, nothing else;
+     ``backend_sharded`` cuda@data1; accuracy above chance; its server
+     step beside the main path's), the one-rank sharded round on seeded W
+     at the main shape in f32 and bf16 equal to the dense cuda round bit
+     for bit, and ``--method coalition_topk --sketch rproj --sketch-dim 256
+     --mesh data=1 --rounds 2`` (``segment_sum`` once a round, nothing
+     else);
+  6k. 2 gloo ranks sharing the card, spawned by the script (phase k), run
+     the sharded cuda round on seeded W at (10, 582,026) and (10,
+     8,000,000): each rank's launches 1 + 1 on its contiguous odd-width
+     tile; assignments and centers equal to the dense cuda round's, θ,
+     barycenters and medoid distances within 5e-6 of max; the ranks' (10,
+     3) all-reduce and θ all-gather times; then in this process each
+     rank's two kernels on its tile timed beside their bounds, and the
+     tile copy;
   9. traces one round of the main path's shape with torch.profiler and
      prints the device's busy share and its top kernels;
   10. runs the pretrain path, ``train --mode pretrain --flash --lr 1e-3
@@ -157,6 +174,17 @@ In order, it
       peak memory.  Then one forward of the full model with the kernel and
       without (losses within 1e-2 relative), and one pretrain step traced
       with torch.profiler (busy share, top kernels);
+  10m. hymba-1.5b in full, 3 Adam steps at lr 1e-3 through the flash
+      kernel with ``make_train_step(remat=True)`` and again with remat off,
+      from the same init and batches (phase m): the first loss equal, the
+      later ones within 1e-6 relative (remat changes no arithmetic); s/step, peak memory and flash
+      launches a step for both (2L with remat: each block's forward runs
+      again in the backward; L without);
+  10l. one moonshot-v1-16b-a3b MoE layer at full width (64 experts, top 6,
+      d 2048, ff 1408) in f32 on 4 x 32 tokens (phase l): ``moe_apply_ep``
+      on a one-rank (data=1, model=1) mesh against ``moe_apply``, both drop
+      counts printed at the config's capacity and the outputs within 2e-4
+      at capacity 8.0 (no drop on either); its gradients finite;
   10a. runs five serve phases, ``repro_torch.launch.serve --mode lm
       --full --arch A`` at the CLI's other defaults (batch 4, prompt 32, 16
       new tokens, greedy), one full-width bf16 model at a time, freed
@@ -189,7 +217,8 @@ In order, it
       the main width and at 8M, the pretrain path, and ``flash_attention``
       also at the serve path's encoder shape with the seamless phase's
       launches, and the fused round's two kernels also at the
-      transformer_tiny path's bf16 (10, 3, 27,626) with its launches; a
+      transformer_tiny path's bf16 (10, 3, 27,626) with its launches, and
+      at rank 1's (10, 3, 291,013) tile with phase k's launches there; a
       line with none fails),
       and last
       ``{"ok": true, "device": {...}}``.
@@ -268,6 +297,26 @@ SERVE_FL_STEADY = ["--batch", "32", "--repeat", "64"]
 TINY_ARGS = ["--mode", "fl", "--model", "transformer_tiny", "--rounds",
              str(ROUNDS), "--local-epochs", "1"]
 TINY = (10, 3, 27_626)
+#: the sharded federation (phases j and k): the main path on a one-rank
+#: mesh, its sketch path on it, and the round on 2 gloo ranks sharing the
+#: card at the CNN's D and at 8M
+MESH_ARGS = ["--mode", "fl", "--rounds", str(3), "--mesh", "data=1"]
+MESH_SKETCH_ARGS = ["--mode", "fl", "--method", "coalition_topk", "--sketch",
+                    "rproj", "--sketch-dim", "256", "--mesh", "data=1",
+                    "--rounds", "2"]
+SHARD_RANKS = 2
+SHARD_D = (582_026, 8_000_000)
+#: phase l: one moonshot-v1-16b-a3b MoE layer at full width in f32, on
+#: 4 x 32 tokens, expert parallelism at world 1 against the dense layer
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_TOKENS = (4, 32)
+MOE_TOL = 2e-4
+#: phase m: hymba-1.5b in full, REMAT_STEPS Adam steps with and without
+#: remat from one init and batches; later losses within 1e-6 relative
+#: (remat runs the same forward again, so the losses agree but for the
+#: order of a reduction)
+REMAT_STEPS = 3
+REMAT_RTOL = 1e-6
 #: the DP phase's noise multiplier and the bound on its residual's std
 DP_SIGMA = 0.5
 DP_STD_RTOL = 0.02
@@ -1073,7 +1122,7 @@ def run_main_path() -> dict:
     report_rounds(out, label, wall, launches, ROUNDS)
     expect_launches(label, launches, {"center_sq_dists": ROUNDS,
                                       "fused_coalition_stats": ROUNDS})
-    return launches
+    return launches, out["server_s"]
 
 
 def run_fedavg_path() -> None:
@@ -1735,11 +1784,14 @@ def run_tiny_path() -> dict:
             fail(f"{name} disagrees with its plain version at the "
                  f"transformer_tiny shape")
     wb = n * d * 2
+    # the library yardstick takes f32: its upcast of W is in the timed call
+    centers = conehot @ w.float()
     rows = {
         "center_sq_dists": timed_row(
             f"center_sq_dists N={n} K={k} D={d} bf16",
             lambda: fr.center_sq_dists(w, conehot),
-            lambda: ref.center_sq_dists(w, conehot), None,
+            lambda: ref.center_sq_dists(w, conehot),
+            lambda: torch.cdist(w.float(), centers),
             wb + 4 * (k * n + n * k), 2 * k * n * d + 3 * n * k * d),
         "fused_coalition_stats": timed_row(
             f"fused_coalition_stats N={n} K={k} D={d} bf16",
@@ -1901,8 +1953,9 @@ def check_forward(model, batch) -> None:
 
 
 def profile_pretrain_step(model, batch) -> None:
-    """Where a pretrain step's time goes: the full model with the flash
-    kernel and Adam at PRETRAIN_LR; one warm-up step, one step timed plain,
+    """Where a pretrain step's time goes: the pretrain path's own step (the
+    full model with the flash kernel, Adam at PRETRAIN_LR, remat off as the
+    pretrain CLI runs it); one warm-up step, one step timed plain,
     one traced with torch.profiler: the device's busy share and its top
     kernels."""
     import torch
@@ -1913,7 +1966,7 @@ def profile_pretrain_step(model, batch) -> None:
 
     layers.set_flash_kernel(True)
     step_fn, opt = steps.make_train_step(model.cfg, optimizer="adam",
-                                         lr=float(PRETRAIN_LR))
+                                         lr=float(PRETRAIN_LR), remat=False)
     state = opt.init(dict(model.named_parameters()))
 
     def one_step():
@@ -2481,6 +2534,320 @@ def profile_round() -> None:
               f"{e.count:5d}x  {e.key[:70]}")
 
 
+def run_mesh_path(dense_server_s: list) -> None:
+    """Phase j: ``train --mode fl --mesh data=1 --rounds 3`` at the
+    defaults, counters reset just before: each fused kernel once a round
+    and nothing else, ``backend_sharded`` cuda@data1, accuracy above
+    chance; its server step beside the main path's.  Then the one-rank
+    sharded round on seeded W (the main shape, f32 and bf16) equal to the
+    dense cuda round bit for bit, and the sketch path on the mesh:
+    ``segment_sum`` once a round on the tile (its sketch-space distances
+    are plain torch, as the reference's)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import fused, sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    label = f"train {' '.join(MESH_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(MESH_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, ROUNDS)
+    expect_launches(label, launches, {"center_sq_dists": ROUNDS,
+                                      "fused_coalition_stats": ROUNDS})
+    if out["backend_sharded"] != "cuda@data1" or out["mesh"] != "data=1":
+        fail(f"{label}: mesh {out.get('mesh')!r}, backend "
+             f"{out.get('backend_sharded')!r}")
+    print(f"{label}: server step {out['server_s']} s against the main "
+          f"path's {dense_server_s} s (collectives: {dist.get_backend()})")
+    mesh = mesh_lib.parse_mesh("data=1")
+    n, k, d = MAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        w, _, _ = inputs(n, k, d, dtype, seed=5)
+        ci = torch.tensor([0, 4, 7], device="cuda")
+        dense = fused.fused_round(w, ci, backend="cuda")
+        got = fused.fused_round(w, ci, backend=sharded.sharded_backend(
+            "cuda", mesh))
+        same = all(torch.equal(getattr(dense, f), getattr(got, f))
+                   for f in dense._fields)
+        print(f"phase j: the one-rank sharded round at ({n}, {d}) {dtype} "
+              f"equal to the dense cuda round bit for bit: {same}")
+        if not same:
+            fail("phase j: the one-rank sharded round is not the dense one")
+    label = f"train {' '.join(MESH_SKETCH_ARGS)}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(MESH_SKETCH_ARGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    report_rounds(out, label, wall, launches, 2)
+    expect_launches(label, launches, {"segment_sum": 2})
+    print(f"phase j (the sharded federation at world 1): done")
+
+
+def shard_rank(rank: int, world: int, shapes) -> dict:
+    """Phase k's rank body (a gloo rank sharing the card): the sharded cuda
+    round on seeded W at each D, launches counted; then the times of its
+    collectives, host clock around each, every call ending in a
+    synchronise: the two (10, 3) all-reduces of a round and the θ
+    all-gather, each the mean of 20."""
+    import torch
+
+    from repro_torch.core import fused, sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.parse_mesh(f"data={world}")
+    out = {}
+    for n, k, d in shapes:
+        w, _, _ = inputs(n, k, d, torch.float32, seed=7)
+        ci = torch.tensor([0, 4, 7], device="cuda")
+        ops.reset_launch_counts()
+        r = fused.fused_round(w, ci, backend=sharded.sharded_backend(
+            "cuda", mesh))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        theta = sharded.gather_cols(r.theta, mesh, d)
+        bary = sharded.gather_cols(r.barycenters, mesh, d)
+        part = torch.zeros((n, k), device="cuda")
+        times = {}
+        for name, fn in (("all_reduce_ms", lambda: sharded.summed(part,
+                                                                  mesh)),
+                         ("gather_ms", lambda: sharded.gather_cols(
+                             r.theta, mesh, d))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) / 20 * 1e3
+        out[d] = {"launches": launches, "tile": tuple(r.theta.shape),
+                  "assignment": r.assignment.cpu(),
+                  "centers": r.new_center_idx.cpu(), "theta": theta.cpu(),
+                  "barycenters": bary.cpu(), "med_d2": r.med_d2.cpu(),
+                  **times}
+    return out
+
+
+def run_shard_path() -> dict:
+    """Phase k: SHARD_RANKS gloo ranks sharing the card, spawned here, run
+    the sharded cuda round on seeded W at (10, D) for D in SHARD_D: each
+    rank's launches 1 + 1 on its odd-width contiguous tile; assignments and
+    centers equal to the dense cuda round's, θ, barycenters and medoid
+    distances within TOL of max.  Then, in this process, each rank's two
+    kernels on its tile (CUDA events, L2 flushed) beside their bounds and
+    the tile copy; the ranks' all-reduce and θ all-gather times.  Returns
+    the kernels' rows at rank 1's tile of the CNN's D."""
+    import torch
+
+    from repro_torch.core import fused, sharded
+    from repro_torch.kernels import fused_round as fr
+    from repro_torch.kernels import ref
+    from repro_torch.testing import run_ranks
+
+    n, k, _ = MAIN
+    shapes = [(n, k, d) for d in SHARD_D]
+    t0 = time.perf_counter()
+    got = run_ranks(shard_rank, SHARD_RANKS, shapes, device="cuda:0",
+                    timeout=300)
+    print(f"phase k: {SHARD_RANKS} gloo ranks sharing the card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for _, _, d in shapes:
+        w, conehot, m = inputs(n, k, d, torch.float32, seed=7)
+        ci = torch.tensor([0, 4, 7], device="cuda")
+        dense = fused.fused_round(w, ci, backend="cuda")
+        for rank, res in enumerate(got):
+            r = res[d]
+            errs = {f: rel_err(r[f].cuda(), getattr(dense, f))[1]
+                    for f in ("theta", "barycenters", "med_d2")}
+            same = (torch.equal(r["assignment"], dense.assignment.cpu())
+                    and torch.equal(r["centers"],
+                                    dense.new_center_idx.cpu()))
+            print(f"phase k rank {rank} D={d}: tile {r['tile']}, launches "
+                  f"{r['launches']}, assignment and centers equal to the "
+                  f"dense cuda round: {same}, / max errors "
+                  f"{ {f: f'{e:.3e}' for f, e in errs.items()} }; "
+                  f"(10, 3) all-reduce {r['all_reduce_ms']:.4f} ms, theta "
+                  f"all-gather ({4 * d / 1e6:.1f} MB) {r['gather_ms']:.4f} "
+                  f"ms (host clock, gloo)")
+            expect_launches(f"phase k rank {rank} D={d}", r["launches"],
+                            {"center_sq_dists": 1,
+                             "fused_coalition_stats": 1})
+            if not same or max(errs.values()) > TOL:
+                fail(f"phase k: rank {rank}'s sharded round at D={d} is "
+                     f"not the dense round")
+        width = -(-d // SHARD_RANKS)
+        for rank in range(SHARD_RANKS):
+            copy_ms = time_ms(lambda: sharded.cut_tile(w, SHARD_RANKS, rank))
+            tile = sharded.cut_tile(w, SHARD_RANKS, rank)
+            route = fr.route(n, k, width, tile.dtype, tile.data_ptr())
+            tb = n * width * 4
+            print(f"time tile copy rank {rank} D={d}: {copy_ms:.4f} ms "
+                  f"({2 * tb / 1e6:.1f} MB read and written, bound "
+                  f"{bound(2 * tb, 0)[0]:.4f} ms), route {route}")
+            pair = {
+                "center_sq_dists": timed_row(
+                    f"center_sq_dists N={n} K={k} D={width} f32, rank "
+                    f"{rank}'s tile of D={d} (route {route})",
+                    lambda: fr.center_sq_dists(tile, conehot),
+                    lambda: ref.center_sq_dists(tile, conehot),
+                    lambda: torch.cdist(tile, (conehot @ tile)),
+                    tb + 4 * (k * n + n * k),
+                    2 * k * n * width + 3 * n * k * width),
+                "fused_coalition_stats": timed_row(
+                    f"fused_coalition_stats N={n} K={k} D={width} f32, rank "
+                    f"{rank}'s tile of D={d} (route {route})",
+                    lambda: fr.fused_coalition_stats(tile, m),
+                    lambda: ref.fused_coalition_stats(tile, m), None,
+                    tb + 4 * (k * n + k * width + width + n * k),
+                    2 * k * n * width + k * width + width
+                    + 3 * n * k * width)}
+            if d == SHARD_D[0] and rank == 1:
+                for name, row in pair.items():
+                    got_k = (fr.center_sq_dists(tile, conehot)
+                             if name == "center_sq_dists"
+                             else fr.fused_coalition_stats(tile, m))
+                    want = (ref.center_sq_dists(tile, conehot)
+                            if name == "center_sq_dists"
+                            else ref.fused_coalition_stats(tile, m))
+                    errs = [rel_err(g, r) for g, r in zip(
+                        got_k if isinstance(got_k, tuple) else (got_k,),
+                        want if isinstance(want, tuple) else (want,))]
+                    row["err"] = max(e for e, _ in errs)
+                    if max(r for _, r in errs) > TOL:
+                        fail(f"phase k: {name} on rank 1's tile disagrees "
+                             f"with its plain version")
+                    row["kernel_route"] = route
+                    row["launches"] = got[1][d]["launches"][name]
+                    rows[name] = row
+        del w
+    return rows
+
+
+def run_moe_ep_phase() -> None:
+    """Phase l: one MoE layer of moonshot-v1-16b-a3b at full width (64
+    experts, top 6, d 2048, ff 1408) in f32 on 4 x 32 tokens: moe_apply_ep
+    on a one-rank (data=1, model=1) mesh against moe_apply, both drop counts
+    printed at the config's capacity, the outputs compared at capacity 8.0
+    (no drop on either) within MOE_TOL; its gradients finite."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get(MOE_ARCH), dtype="float32")
+    params = moe.moe_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                          device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((*MOE_TOKENS, cfg.d_model), generator=g, device="cuda")
+    mesh = mesh_lib.parse_mesh("data=1,model=1")
+    t = MOE_TOKENS[0] * MOE_TOKENS[1]
+    for cf in (cfg.capacity_factor, 8.0):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        stats = {}
+        with torch.no_grad():
+            got, aux = moe.moe_apply_ep(params, c, x, mesh=mesh, stats=stats)
+            want, want_aux = moe.moe_apply(params, c, x)
+            keep = moe.dispatch(params, c, x.reshape(t, -1),
+                                moe.capacity(c, t)).keep
+        dense_drops = int((~keep).sum())
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"phase l {MOE_ARCH} f32 capacity {cf}: dropped pairs ep "
+              f"{stats['dropped']} / dense {dense_drops} of {t * c.top_k}; "
+              f"max abs err {err:.3e} (max |out| {scale:.3e}), aux "
+              f"{float(aux):.6f} / {float(want_aux):.6f}")
+        if cf == 8.0 and (stats["dropped"] or dense_drops
+                          or err > MOE_TOL * max(1.0, scale)
+                          or abs(float(aux) - float(want_aux)) > MOE_TOL):
+            fail("phase l: moe_apply_ep disagrees with moe_apply")
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    xg = x.clone().requires_grad_()
+    out, aux = moe.moe_apply_ep(p, cfg, xg, mesh=mesh)
+    (out.square().mean() + aux).backward()
+    finite = all(bool(torch.isfinite(v.grad).all()) for v in p.values()) \
+        and bool(torch.isfinite(xg.grad).all())
+    print(f"phase l: gradients finite: {finite}")
+    if not finite:
+        fail("phase l: moe_apply_ep's gradients are not finite")
+
+
+def run_remat_phase() -> dict:
+    """Phase m: hymba-1.5b in full, REMAT_STEPS Adam steps at lr 1e-3 with
+    ``make_train_step(remat=True)`` and again with remat off, from the same
+    init and batches, through the flash kernel: the first loss equal, the
+    later ones within REMAT_RTOL relative; s/step, peak memory and flash
+    launches a step for both."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    cfg = get("hymba-1.5b")
+    toks = torch.from_numpy(synthetic.lm_tokens(
+        10 * REMAT_STEPS, 129, cfg.vocab, seed=0)).cuda()
+    layers.set_flash_kernel(True)
+    runs = {}
+    try:
+        for remat in (True, False):
+            model = tf.init(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+            step, opt = steps.make_train_step(cfg, optimizer="adam",
+                                              lr=float(PRETRAIN_LR),
+                                              remat=remat)
+            state = opt.init(dict(model.named_parameters()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, secs, flash, retries = [], [], [], []
+            for i in range(REMAT_STEPS):
+                ops.reset_launch_counts()
+                before = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                t0 = time.perf_counter()
+                losses.append(float(step(model, state, {
+                    "tokens": toks[10 * i:10 * (i + 1)]})))
+                secs.append(time.perf_counter() - t0)
+                flash.append(ops.launch_counts()["flash_attention"])
+                # the allocator's retries (cached blocks freed, the
+                # allocation tried again) stall the host
+                retries.append(torch.cuda.memory_stats().get(
+                    "num_alloc_retries", 0) - before)
+            runs[remat] = {"losses": losses, "step_s": secs,
+                           "peak": torch.cuda.max_memory_allocated(),
+                           "flash": flash, "alloc_retries": retries}
+            del model, state, step, opt
+            torch.cuda.empty_cache()
+    finally:
+        layers.set_flash_kernel(False)
+    for remat, r in runs.items():
+        print(f"phase m hymba-1.5b remat={remat}: losses {r['losses']}, "
+              f"step seconds {[round(t, 4) for t in r['step_s']]}, peak "
+              f"{r['peak'] / 2**30:.2f} GiB, flash launches a step "
+              f"{r['flash']}, allocator retries a step {r['alloc_retries']}")
+    on, off = runs[True]["losses"], runs[False]["losses"]
+    if on[0] != off[0] or any(abs(a - b) > REMAT_RTOL * abs(b)
+                              for a, b in zip(on[1:], off[1:])):
+        fail(f"phase m: losses with remat {on} are not those without {off}")
+    if any(f != 2 * cfg.n_layers for f in runs[True]["flash"]) or \
+            any(f != cfg.n_layers for f in runs[False]["flash"]):
+        fail("phase m: flash launches a step are not 2L with remat, L "
+             "without")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -2514,7 +2881,8 @@ def main() -> int:
     times = time_kernels()
     flash_rows = time_flash()
     times["flash_attention"] = flash_rows[FLASH_PATH]
-    launches = run_main_path()
+    launches, main_server_s = run_main_path()
+    run_mesh_path(main_server_s)
     run_fedavg_path()
     run_straggler_path()
     run_event_path()
@@ -2528,6 +2896,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tiny = run_tiny_path()
+    shard = run_shard_path()
     print(f"host summary: snapshot write {max(host['publish_s']):.4f} s "
           f"max, checkpoint write {max(host['save_s']):.4f} s max, resume "
           f"{host['resume_s']:.2f} s (restore {host['restore_s']:.4f} s, "
@@ -2545,6 +2914,9 @@ def main() -> int:
     check_forward(model, batch)
     profile_pretrain_step(model, batch)
     del model, batch
+    torch.cuda.empty_cache()
+    run_remat_phase()
+    run_moe_ep_phase()
     serves = {arch: run_serve_phase(arch, extra)
               for arch, extra in SERVE_PHASES}
     for arch, r in serves.items():
@@ -2617,6 +2989,12 @@ def main() -> int:
                tiny[name]["err"],
                (f"transformer_tiny path ({' '.join(TINY_ARGS)})",
                 tiny["launches"]))
+              for name in ("center_sq_dists", "fused_coalition_stats")]
+    width = -(-d // SHARD_RANKS)
+    lines += [(name, f"N={n} K={k} D={width} f32 (rank 1's tile of D={d})",
+               shard[name], shard[name]["err"],
+               (f"sharded round, {SHARD_RANKS} gloo ranks, rank 1",
+                shard[name]["launches"]))
               for name in ("center_sq_dists", "fused_coalition_stats")]
     lines.append(("flash_attention", f"{FLASH_ENCODER[:6]} bf16 non-causal",
                   flash_rows[FLASH_ENCODER], flash_errs[FLASH_ENCODER],

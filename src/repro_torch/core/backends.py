@@ -23,8 +23,17 @@ Registered backends:
                :mod:`repro_torch.kernels.segment_mean` (the plain versions for
                CPU tensors).  Each base primitive counts its sweep over W.
 
-The reference's optional ``sketched_fused_round`` field serves only its
-sharded backends and waits for them (ROADMAP queue A.6).
+A second optional field, ``sketched_fused_round(w, center_idx, *,
+sketcher, client_weights=None, chunk=None) -> FusedStats``, is set only by
+backends that must own the sketch themselves:
+:func:`repro_torch.core.sharded.sharded_backend` sums the partial sketches
+of each rank's column tile over its mesh axis.  Without it the dispatcher
+sketches W densely and runs the shared sketched round.
+
+Each primitive takes a ``chunk=`` hint (the streaming sweeps' column tile)
+that the backends which do not stream ignore.  Backends compose: the
+sharded wrapper is an unregistered Backend (name ``cuda@data2`` etc.) that
+:func:`get_backend` passes through by instance.
 """
 from __future__ import annotations
 
@@ -48,6 +57,9 @@ class Backend(NamedTuple):
     segment_sum: Callable[..., torch.Tensor]
     #: optional two-pass fused round; None = the generic composition
     fused_round: Callable[..., "FusedStats"] | None = None
+    #: optional sketched round ``(w, center_idx, *, sketcher, ...)``; None =
+    #: the dispatcher sketches W densely and runs the shared sketched round
+    sketched_fused_round: Callable[..., "FusedStats"] | None = None
 
 
 _BACKENDS: dict[str, Backend] = {}
@@ -76,19 +88,20 @@ def available_backends() -> tuple[str, ...]:
 
 
 def _register_cuda() -> None:
-    def _pairwise(w):
+    # the kernels sweep D in their own tiles: the chunk hint is ignored
+    def _pairwise(w, chunk=None):
         instrument.count_w_pass()
         return kops.pairwise_sq_dists(w.contiguous())
 
-    def _to_points(w, p):
+    def _to_points(w, p, chunk=None):
         instrument.count_w_pass()
         return kops.sq_dists_to_points(w.contiguous(), p.contiguous())
 
-    def _segment_sum(onehot, w):
+    def _segment_sum(onehot, w, chunk=None):
         instrument.count_w_pass()
         return kops.segment_sum(onehot.float().contiguous(), w.contiguous())
 
-    def _fused_round(w, center_idx, *, client_weights=None):
+    def _fused_round(w, center_idx, *, client_weights=None, chunk=None):
         from repro_torch.core import fused as fz
 
         return fz.fused_round_cuda(w, center_idx,

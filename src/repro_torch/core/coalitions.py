@@ -77,10 +77,11 @@ def init_centers(w: torch.Tensor, k: int, *, perm: torch.Tensor | None = None,
 
 
 def assign(w: torch.Tensor, center_idx: torch.Tensor, *,
-           backend: str | bk.Backend = "stream") -> torch.Tensor:
+           backend: str | bk.Backend = "stream",
+           chunk: int | None = None) -> torch.Tensor:
     """Step II: each client joins the coalition with the nearest center."""
-    d2 = distance.sq_dists_to_points(w, w[center_idx],
-                                     backend=backend)         # (N, K)
+    d2 = distance.sq_dists_to_points(w, w[center_idx], backend=backend,
+                                     chunk=chunk)             # (N, K)
     return fz.pin_assignment(d2, center_idx)
 
 
@@ -88,13 +89,16 @@ def run_round(w: torch.Tensor, state: CoalitionState, *,
               backend: str | bk.Backend = "stream",
               client_weights: torch.Tensor | None = None,
               fused: bool = True,
+              chunk: int | None = None,
               sketcher=None) -> CoalitionRound:
     """One full Algorithm-1 server round over fresh client weights ``w``.
 
     ``client_weights``: optional (N,) importances (uniform = the paper's
     Algorithm 1); zero-weight clients cannot be elected medoid.
     ``fused=True`` runs Steps II-IV through the backend's two-pass
-    ``fused_round``; ``fused=False`` runs the composed path.  A non-identity
+    ``fused_round``; ``fused=False`` runs the composed path.  ``chunk``:
+    the streaming sweeps' column tile (None = the size-derived default,
+    :func:`repro_torch.core.fused.resolve_chunk`), the same on both.  A non-identity
     ``sketcher`` (:mod:`repro_torch.core.sketch`) runs assignment and medoid
     election on the (N, S) sketch, through the fused entry point whatever
     ``fused`` says (the composed path has no sketched form).
@@ -105,7 +109,7 @@ def run_round(w: torch.Tensor, state: CoalitionState, *,
         fused = True                 # a sketch has only the fused entry point
     if fused:
         r = fz.fused_round(w, state.center_idx, backend=backend,
-                           client_weights=client_weights,
+                           client_weights=client_weights, chunk=chunk,
                            sketcher=sketcher)
         return CoalitionRound(
             assignment=r.assignment, barycenters=r.barycenters,
@@ -113,12 +117,12 @@ def run_round(w: torch.Tensor, state: CoalitionState, *,
             radius=r.radius, med_d2=r.med_d2,
             state=CoalitionState(center_idx=r.new_center_idx,
                                  round=state.round + 1))
-    assignment = assign(w, state.center_idx, backend=backend)
+    assignment = assign(w, state.center_idx, backend=backend, chunk=chunk)
     b, counts = bary_mod.barycenters(
         w, assignment, k, fallback=w[state.center_idx].float(),
         backend=backend, client_weights=client_weights)
     # the medoid election and the intra radius share one distance matrix
-    med_d2 = distance.sq_dists_to_points(w, b, backend=backend)
+    med_d2 = distance.sq_dists_to_points(w, b, backend=backend, chunk=chunk)
     new_centers = fz.medoid_from_d2(med_d2, assignment, client_weights)
     radius = obs_metrics.intra_radius(med_d2, assignment, k, client_weights)
     return CoalitionRound(

@@ -34,8 +34,10 @@ def _pairwise_sq_stream(w: torch.Tensor, chunk: int) -> torch.Tensor:
     return acc
 
 
-def _pairwise_sq_dot(w: torch.Tensor) -> torch.Tensor:
-    """Gram form, clamped at 0 with the diagonal zeroed."""
+def _pairwise_sq_dot(w: torch.Tensor, chunk: int | None = None
+                     ) -> torch.Tensor:
+    """Gram form, clamped at 0 with the diagonal zeroed (one product: the
+    chunk hint is ignored)."""
     instrument.count_w_pass()
     wf = w.float()
     gram = wf @ wf.T
@@ -58,7 +60,8 @@ def _to_points_sq_stream(w: torch.Tensor, points: torch.Tensor,
     return acc
 
 
-def _to_points_sq_dot(w: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+def _to_points_sq_dot(w: torch.Tensor, points: torch.Tensor,
+                      chunk: int | None = None) -> torch.Tensor:
     instrument.count_w_pass()
     wf, pf = w.float(), points.float()
     d2 = (torch.sum(wf * wf, dim=1)[:, None] + torch.sum(pf * pf, dim=1)[None, :]
@@ -66,18 +69,20 @@ def _to_points_sq_dot(w: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
-def _segment_sum_matmul(onehot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(K, N) one-hot × (N, D) weights -> (K, D) per-coalition sums."""
+def _segment_sum_matmul(onehot: torch.Tensor, w: torch.Tensor,
+                        chunk: int | None = None) -> torch.Tensor:
+    """(K, N) one-hot × (N, D) weights -> (K, D) per-coalition sums (one
+    product: the chunk hint is ignored)."""
     instrument.count_w_pass()
     return onehot.float() @ w.float()
 
 
 bk.register_backend(bk.Backend(
     name="stream",
-    pairwise_sq_dists=lambda w: _pairwise_sq_stream(
-        w, fz.default_chunk(w.shape[1])),
-    sq_dists_to_points=lambda w, p: _to_points_sq_stream(
-        w, p, fz.default_chunk(w.shape[1])),
+    pairwise_sq_dists=lambda w, chunk=None: _pairwise_sq_stream(
+        w, fz.resolve_chunk(chunk, w.shape[1])),
+    sq_dists_to_points=lambda w, p, chunk=None: _to_points_sq_stream(
+        w, p, fz.resolve_chunk(chunk, w.shape[1])),
     segment_sum=_segment_sum_matmul,
     fused_round=fz.fused_round_stream,
 ))
@@ -105,9 +110,11 @@ def pairwise_dists(w: torch.Tensor, *,
 
 
 def sq_dists_to_points(w: torch.Tensor, points: torch.Tensor, *,
-                       backend: str | bk.Backend = "stream") -> torch.Tensor:
-    """(N, K) squared distances from each client row to each point row."""
-    return bk.get_backend(backend).sq_dists_to_points(w, points)
+                       backend: str | bk.Backend = "stream",
+                       chunk: int | None = None) -> torch.Tensor:
+    """(N, K) squared distances from each client row to each point row
+    (``chunk``: the streaming sweep's column tile)."""
+    return bk.get_backend(backend).sq_dists_to_points(w, points, chunk=chunk)
 
 
 def dists_to_points(w: torch.Tensor, points: torch.Tensor, *,

@@ -31,11 +31,17 @@ Implementations (registered through :mod:`repro_torch.core.backends`):
 A non-identity sketcher (:mod:`repro_torch.core.sketch`) moves pass 1 and
 the medoid election onto the (N, S) sketch (:func:`sketched_fused_round`):
 the sketch is one sweep over W and the barycenter segment sum the only other.
+
+The three fused rounds take a ``reduce`` hook (identity by default), applied
+to the pass-1 distances (on ``dot`` the Gram matrix) and to the pass-2
+medoid distances: :mod:`repro_torch.core.sharded` runs them on a rank's
+column tile of W with ``reduce`` an all-reduce over the mesh, so the dense
+and the sharded round are one body.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +84,16 @@ DEFAULT_CHUNK = 65536
 def default_chunk(d: int) -> int:
     """One exact tile for models narrower than the cap, else the cap."""
     return max(1, min(int(d), DEFAULT_CHUNK))
+
+
+def resolve_chunk(chunk: int | None, d: int) -> int:
+    """``chunk`` if set (validated), else :func:`default_chunk`."""
+    if chunk is None:
+        return default_chunk(d)
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return chunk
 
 
 # --- shared glue (the O(N*K) algebra between the two passes) ---------------------
@@ -137,6 +153,13 @@ def medoid_from_d2(med_d2: torch.Tensor, assignment: torch.Tensor,
                        torch.argmin(med_d2, dim=0))
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+
 # --- stream: chunked diff form in plain PyTorch ---------------------------------
 
 def _stream_center_d2(w: torch.Tensor, center_idx: torch.Tensor,
@@ -173,33 +196,39 @@ def _stream_bary_med_theta(w: torch.Tensor, oh_eff: torch.Tensor,
 
 def fused_round_stream(w: torch.Tensor, center_idx: torch.Tensor, *,
                        client_weights: torch.Tensor | None = None,
-                       ) -> FusedStats:
-    """Two chunked diff-form sweeps over W in plain PyTorch."""
+                       chunk: int | None = None,
+                       reduce: Reduce = _identity) -> FusedStats:
+    """Two chunked diff-form sweeps over W in plain PyTorch, ``chunk``
+    columns at a time (:func:`resolve_chunk`); ``reduce`` as in the module
+    docstring."""
     k = center_idx.shape[0]
-    chunk = default_chunk(w.shape[1])
+    chunk = resolve_chunk(chunk, w.shape[1])
     instrument.count_w_pass()                                # pass 1
-    d2c = _stream_center_d2(w, center_idx, chunk)
+    d2c = reduce(_stream_center_d2(w, center_idx, chunk))
     assignment = pin_assignment(d2c, center_idx)
     oh_eff, counts, denom = aggregation_matrix(assignment, k, center_idx,
                                                client_weights)
     instrument.count_w_pass()                                # pass 2
     b, theta, med_d2 = _stream_bary_med_theta(w, oh_eff, denom, chunk)
     return FusedStats(assignment=assignment, barycenters=b, counts=counts,
-                      med_d2=med_d2, theta=theta)
+                      med_d2=reduce(med_d2), theta=theta)
 
 
 # --- dot: Gram composition -------------------------------------------------------
 
 def fused_round_dot(w: torch.Tensor, center_idx: torch.Tensor, *,
                     client_weights: torch.Tensor | None = None,
-                    ) -> FusedStats:
+                    chunk: int | None = None,
+                    reduce: Reduce = _identity) -> FusedStats:
     """Gram form: the medoid distances are Gram algebra,
     ⟨w_i, b_j⟩ = (G · oh_effᵀ)_ij / denom_j, so only the barycenter product
-    re-reads W."""
+    re-reads W.  Its two products are whole, so ``chunk`` is ignored, as in
+    the reference.  ``reduce`` applies to the Gram matrix alone: the medoid
+    distances come out of the reduced one."""
     k = center_idx.shape[0]
     wf = w.float()
     instrument.count_w_pass()                                # pass 1
-    gram = wf @ wf.T                                         # (N, N)
+    gram = reduce(wf @ wf.T)                                 # (N, N)
     sq = torch.diagonal(gram)
     d2c = torch.clamp(sq[:, None] + sq[center_idx][None, :]
                       - 2.0 * gram[:, center_idx], min=0.0)
@@ -220,14 +249,17 @@ def fused_round_dot(w: torch.Tensor, center_idx: torch.Tensor, *,
 
 def fused_round_cuda(w: torch.Tensor, center_idx: torch.Tensor, *,
                      client_weights: torch.Tensor | None = None,
-                     ) -> FusedStats:
+                     chunk: int | None = None,
+                     reduce: Reduce = _identity) -> FusedStats:
     """Both passes through :mod:`repro_torch.kernels.ops`: the CUDA kernels
-    for a CUDA W, their plain versions for a CPU W."""
+    for a CUDA W, their plain versions for a CPU W.  The kernels sweep D in
+    their own tiles, so ``chunk`` is ignored, as the reference's Pallas
+    round does; ``reduce`` as in the module docstring."""
     n = w.shape[0]
     k = center_idx.shape[0]
     conehot = F.one_hot(center_idx.long(), n).float()        # (K, N)
     instrument.count_w_pass()                                # pass 1
-    d2c = kops.center_sq_dists(w, conehot)
+    d2c = reduce(kops.center_sq_dists(w, conehot))
     assignment = pin_assignment(d2c, center_idx)
     oh_eff, counts, denom = aggregation_matrix(assignment, k, center_idx,
                                                client_weights)
@@ -235,7 +267,7 @@ def fused_round_cuda(w: torch.Tensor, center_idx: torch.Tensor, *,
     b, theta, med_d2 = kops.fused_coalition_stats(
         w, (oh_eff / denom[:, None]).contiguous())
     return FusedStats(assignment=assignment, barycenters=b, counts=counts,
-                      med_d2=med_d2, theta=theta)
+                      med_d2=reduce(med_d2), theta=theta)
 
 
 # --- generic composition ---------------------------------------------------------
@@ -243,18 +275,18 @@ def fused_round_cuda(w: torch.Tensor, center_idx: torch.Tensor, *,
 def compose_fused_round(backend: bk.Backend, w: torch.Tensor,
                         center_idx: torch.Tensor, *,
                         client_weights: torch.Tensor | None = None,
-                        ) -> FusedStats:
+                        chunk: int | None = None) -> FusedStats:
     """The round from the three base primitives only: one center gather plus
     three primitive calls, with the fallback folded into the segment sum."""
     k = center_idx.shape[0]
     centers = w[center_idx]
-    d2c = backend.sq_dists_to_points(w, centers)
+    d2c = backend.sq_dists_to_points(w, centers, chunk=chunk)
     assignment = pin_assignment(d2c, center_idx)
     oh_eff, counts, denom = aggregation_matrix(assignment, k, center_idx,
                                                client_weights)
     b = backend.segment_sum(oh_eff, w) / denom[:, None]
     theta = torch.mean(b, dim=0)
-    med_d2 = backend.sq_dists_to_points(w, b)
+    med_d2 = backend.sq_dists_to_points(w, b, chunk=chunk)
     return FusedStats(assignment=assignment, barycenters=b, counts=counts,
                       med_d2=med_d2, theta=theta)
 
@@ -287,11 +319,16 @@ def sketch_stage(backend: bk.Backend, s_w: torch.Tensor,
 def sketched_fused_round(backend: bk.Backend, w: torch.Tensor,
                          s_w: torch.Tensor, center_idx: torch.Tensor, *,
                          client_weights: torch.Tensor | None = None,
+                         sketch_backend: bk.Backend | None = None,
                          ) -> FusedStats:
     """One coalition round given the sketch ``s_w``: ONE full sweep over W,
-    the barycenter segment sum (which counts its own pass)."""
+    the barycenter segment sum (which counts its own pass).
+    ``sketch_backend`` runs the distances on the sketch (default
+    ``backend``; the sharded round takes the plain ``stream`` ones, as the
+    reference's does)."""
     assignment, oh_eff, counts, denom, med_d2 = sketch_stage(
-        backend, s_w, center_idx, client_weights=client_weights)
+        sketch_backend or backend, s_w, center_idx,
+        client_weights=client_weights)
     b = backend.segment_sum(oh_eff, w) / denom[:, None]
     theta = torch.mean(b, dim=0)
     return FusedStats(assignment=assignment, barycenters=b, counts=counts,
@@ -303,24 +340,33 @@ def sketched_fused_round(backend: bk.Backend, w: torch.Tensor,
 def fused_round(w: torch.Tensor, center_idx: torch.Tensor, *,
                 client_weights: torch.Tensor | None = None,
                 backend: str | bk.Backend = "stream",
-                sketcher: sk_mod.Sketcher | None = None) -> FusedRound:
+                sketcher: sk_mod.Sketcher | None = None,
+                chunk: int | None = None) -> FusedRound:
     """One fused Algorithm-1 round (Steps II-IV) over client weights ``w``.
 
     Runs ``backend.fused_round`` when the backend has one, else
-    :func:`compose_fused_round`; a non-identity ``sketcher`` runs
-    :func:`sketched_fused_round` on its sketch of W instead (2 W sweeps).
-    Finishes with the shared medoid argmin and the intra radius, both
-    O(N·K) algebra over ``med_d2``.
+    :func:`compose_fused_round`; a non-identity ``sketcher`` runs the
+    backend's ``sketched_fused_round`` where it has one (the sharded
+    backends, which sum partial sketches of their tiles), else
+    :func:`sketched_fused_round` on the dense sketch of W (2 W sweeps
+    either way).  ``chunk`` is the streaming sweeps' column tile
+    (:func:`resolve_chunk`).  Finishes with the shared medoid argmin and
+    the intra radius, both O(N·K) algebra over ``med_d2``.
     """
     backend = bk.get_backend(backend)
     if sketcher is not None and not sketcher.is_identity:
-        s_w = sk_mod.sketch_matrix(sketcher, w)
-        s = sketched_fused_round(backend, w, s_w, center_idx,
-                                 client_weights=client_weights)
+        if backend.sketched_fused_round is not None:
+            s = backend.sketched_fused_round(
+                w, center_idx, client_weights=client_weights,
+                sketcher=sketcher, chunk=chunk)
+        else:
+            s_w = sk_mod.sketch_matrix(sketcher, w)
+            s = sketched_fused_round(backend, w, s_w, center_idx,
+                                     client_weights=client_weights)
     else:
         impl = (backend.fused_round if backend.fused_round is not None
                 else functools.partial(compose_fused_round, backend))
-        s = impl(w, center_idx, client_weights=client_weights)
+        s = impl(w, center_idx, client_weights=client_weights, chunk=chunk)
     new_center_idx = medoid_from_d2(s.med_d2, s.assignment, client_weights)
     radius = obs_metrics.intra_radius(s.med_d2, s.assignment,
                                       center_idx.shape[0], client_weights)

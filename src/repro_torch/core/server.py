@@ -74,7 +74,17 @@ values the round already read back, so they leave the numerics untouched:
   ``round`` records (the reference's keys) into a
   :mod:`repro_torch.obs.ledger` sink.
 
-Mesh mode waits for ROADMAP queue A.3.
+* **Mesh mode** (``FederationConfig.mesh``): the coalition round runs
+  split along D over the ``data`` ranks of a device mesh
+  (:mod:`repro_torch.core.sharded`), each rank on its contiguous column
+  tile of W with all-reduces of (N, K) partials between the passes.  Every
+  rank runs the same local phase from the same seeds; after the round θ is
+  gathered from the ranks' tiles (the round's one O(D) collective, inside
+  ``server_s``), and the barycenters only when a snapshot or a checkpoint
+  needs them (the drift metric sums its partial squares instead).  Rank 0
+  alone writes the ledger, snapshots and checkpoints.  Flat rules keep
+  their dense round.  On a one-rank mesh the run equals the dense run bit
+  for bit.
 
 Randomness: each round draws every client's per-epoch shuffles, and round 0
 draws the Step-I permutation, from one ``torch.Generator`` in that order.
@@ -150,6 +160,10 @@ class FederationConfig(NamedTuple):
     #: adversary-capability rank coupling in [-1, 1] (+1 = the strongest
     #: devices are compromised, -1 the weakest, 0 seeded-random)
     rho_adv: float = 0.0
+    #: device-mesh spec (:func:`repro_torch.launch.mesh.parse_mesh`:
+    #: ``"data=2"`` | ``"host"`` | ``"production"``) to split the coalition
+    #: round over; None = the dense round.  Validated at construction.
+    mesh: str | None = None
 
 
 class Draws(NamedTuple):
@@ -574,6 +588,25 @@ class Federation:
             strategies.make_strategy(cfg.method, n_clients=cfg.n_clients,
                                      n_coalitions=cfg.n_coalitions,
                                      backend=cfg.backend)
+        #: the parsed DeviceMesh when cfg.mesh names one (a bad spec or a
+        #: world of another size fails here, not mid-run); a coalition
+        #: rule's backend is rewrapped so its round runs on this rank's
+        #: column tile of W and returns barycenter and θ tiles.  Flat rules
+        #: keep their dense round.
+        self.mesh, self._tiled, self.rank = None, False, 0
+        if cfg.mesh is not None:
+            import torch.distributed as dist
+
+            from repro_torch.core import sharded
+            from repro_torch.launch import mesh as mesh_lib
+
+            self.mesh = mesh_lib.parse_mesh(cfg.mesh)
+            self.rank = dist.get_rank()
+            if getattr(self.strategy, "backend", None) is not None:
+                self.strategy = dataclasses.replace(
+                    self.strategy, backend=sharded.sharded_backend(
+                        self.strategy.backend, self.mesh))
+                self._tiled = True
         n_fleet = cfg.fleet_size or cfg.n_clients
         self.fleet = fleet if fleet is not None else sim_mod.make_fleet(
             cfg.sim.fleet, n_fleet, seed=cfg.sim.seed)
@@ -616,6 +649,27 @@ class Federation:
         if res.barycenters is not None:
             return res.barycenters
         return res.theta[None, :].expand(self.strategy.n_groups, -1)
+
+    def _whole(self, tile: torch.Tensor, d: int) -> torch.Tensor:
+        """A whole (..., D) tensor from this rank's column tile under a
+        mesh (an all-gather every rank must join); the tensor itself
+        otherwise."""
+        if not self._tiled:
+            return tile
+        from repro_torch.core import sharded
+
+        return sharded.gather_cols(tile, self.mesh, d)
+
+    def _drift(self, bary: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+        """The barycenter drift; under a mesh the tiles' partial squares are
+        summed over the ranks before the square root."""
+        if not self._tiled:
+            return obs_metrics.barycenter_drift(bary, prev)
+        from repro_torch.core import sharded
+
+        diff = bary.float() - prev.float()
+        sq = sharded.summed(torch.sum(diff * diff, dim=1), self.mesh)
+        return torch.sqrt(torch.clamp(sq, min=0.0))
 
     def _radius_of(self, metrics: RoundMetrics, device) -> torch.Tensor:
         """The strategy's intra radius, zeros when a rule reports None."""
@@ -886,6 +940,8 @@ class Federation:
                                  "(repro_torch.obs.make_sink)")
         elif sink is not None:
             metrics_every = 1                   # a sink alone: every round
+        if self.rank != 0:
+            sink = None                         # rank 0 writes the ledger
         cfg, strategy = self.cfg, self.strategy
         layout = self.model.layout
         device = next(iter(client_data.values())).device
@@ -914,6 +970,10 @@ class Federation:
         if restored is not None:
             r_done, gp, state, carry, rows = restored
             prev_assign, prev_bary = carry["prev_assign"], carry["bary"]
+            if self._tiled:
+                from repro_torch.core import sharded
+
+                prev_bary = sharded.column_tile(prev_bary, self.mesh)
             if sub is not None:
                 sub.load(carry["sub"])
             for k, g in gens.items():
@@ -941,11 +1001,13 @@ class Federation:
                     w, perm=None if draws is None else draws.center_perm,
                     generator=generator)
             res = strategy.round(agg, state, mask=eff)
+            d = agg.shape[1]
+            theta = self._whole(res.theta, d)
             _sync(device)
             t2 = time.perf_counter()
             state = res.state
-            gp = pytree.unflatten(res.theta, layout, gp)
-            bary = self._bary_of(res)
+            gp = pytree.unflatten(theta, layout, gp)
+            bary = self._bary_of(res)           # this rank's tile on a mesh
             assignment = res.metrics.assignment
             loss = torch.mean(losses)
             if eff is not None:
@@ -965,7 +1027,7 @@ class Federation:
             else:
                 row["churn"] = obs_metrics.membership_churn(assignment,
                                                             prev_assign)
-                row["drift"] = obs_metrics.barycenter_drift(bary, prev_bary)
+                row["drift"] = self._drift(bary, prev_bary)
             if sub is not None:
                 row.update(sub.row(r, mask))
             if ids is not None:
@@ -980,9 +1042,13 @@ class Federation:
             prev_assign, prev_bary = assignment, bary
             if sink is not None:
                 self._emit_rows(sink, rows[-1:], r, metrics_every, steps)
-            if self._fires(r, snapshot_every, steps):
+            publish = self._fires(r, snapshot_every, steps)
+            save = self._fires(r, ckpt_every, steps)
+            if (publish or save) and self._tiled:
+                bary = self._whole(bary, d)     # every rank joins the gather
+            if publish and self.rank == 0:
                 self._publish(store, r, gp, bary, rows[-1])
-            if self._fires(r, ckpt_every, steps):
+            if save and self.rank == 0:
                 carry = {"bary": bary, "prev_assign": assignment,
                          "rng": {k: g.get_state() for k, g in gens.items()}}
                 if sub is not None:

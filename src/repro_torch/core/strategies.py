@@ -230,6 +230,9 @@ class CoalitionStrategy(Strategy):
     sketcher: sk_mod.Sketcher | None = None
     #: optional (N,) barycenter client weights (uniform if None)
     client_weights: torch.Tensor | None = None
+    #: column tile of the streaming sweeps; None = the size-derived default
+    #: (:func:`repro_torch.core.fused.resolve_chunk`)
+    chunk: int | None = None
 
     hierarchical: ClassVar[bool] = True
 
@@ -247,7 +250,8 @@ class CoalitionStrategy(Strategy):
         if mask is not None:
             cw = mask if cw is None else cw * mask
         return co.run_round(w, state, backend=self.backend,
-                            client_weights=cw, sketcher=self.sketcher)
+                            client_weights=cw, chunk=self.chunk,
+                            sketcher=self.sketcher)
 
     def _result(self, r: co.CoalitionRound, theta) -> RoundResult:
         return RoundResult(theta=theta, state=r.state,
@@ -318,21 +322,22 @@ def _resolve_sketcher(sketch=None, sketch_dim=None) -> sk_mod.Sketcher | None:
 
 @register_strategy("coalition")
 def _make_coalition(*, n_clients, n_coalitions=3, backend="stream",
-                    client_weights=None, sketch=None, sketch_dim=None,
-                    **_) -> Strategy:
+                    client_weights=None, chunk=None, sketch=None,
+                    sketch_dim=None, **_) -> Strategy:
     return CoalitionStrategy(n_clients=n_clients, n_groups=n_coalitions,
                              backend=bk.get_backend(backend),
                              sketcher=_resolve_sketcher(sketch, sketch_dim),
-                             client_weights=client_weights)
+                             client_weights=client_weights, chunk=chunk)
 
 
 @register_strategy("coalition_topk")
 def _make_coalition_topk(*, n_clients, n_coalitions=3, backend="stream",
-                         client_weights=None, top_m=None, sketch=None,
-                         sketch_dim=None, **_) -> Strategy:
+                         client_weights=None, top_m=None, chunk=None,
+                         sketch=None, sketch_dim=None, **_) -> Strategy:
     if top_m is None:
         top_m = max(1, n_coalitions - 1)
     return TopKCoalitionStrategy(n_clients=n_clients, n_groups=n_coalitions,
                                  backend=bk.get_backend(backend),
                                  sketcher=_resolve_sketcher(sketch, sketch_dim),
-                                 client_weights=client_weights, top_m=top_m)
+                                 client_weights=client_weights, top_m=top_m,
+                                 chunk=chunk)

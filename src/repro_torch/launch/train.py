@@ -28,8 +28,12 @@ writes resumable checkpoints and ``--resume`` continues from the latest;
 ``--metrics-out`` (``--metrics-every``) streams the run ledger as JSONL,
 ``--trace-out`` writes its simulated-time Chrome trace (substrate
 engines), ``--profile-dir`` a ``torch.profiler`` Chrome trace of the run
-and ``--out`` the summary as JSON.  It prints the reference's JSON summary
-keys plus ``device``.
+and ``--out`` the summary as JSON.  ``--mesh data=P`` splits the coalition
+round along D over P ranks (:mod:`repro_torch.core.sharded`; P processes
+under ``torchrun --nproc-per-node P``, one process is a world of one) and
+adds ``mesh`` and ``backend_sharded`` to the summary; rank 0 alone prints
+and writes.  ``--chunk`` sets the streaming sweeps' column tile.  It
+prints the reference's JSON summary keys plus ``device``.
 
 ``--mode pretrain`` trains an LM of the zoo (``--arch``, default hymba-1.5b
 at full size; ``--reduced`` for the 2-layer f32 variant) on
@@ -80,6 +84,10 @@ Examples:
       --ckpt-dir /tmp/fl-ckpt --ckpt-every 5
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
       --model transformer_tiny --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl --mesh data=1
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --mode fl --device cpu --mesh data=2 --rounds 2 --clients 6 \
+      --coalitions 2 --local-epochs 1 --n-train 600 --n-test 200
 """
 from __future__ import annotations
 
@@ -87,6 +95,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -107,6 +116,7 @@ _EXTRA_CONSUMERS = {
     "top_m": ("coalition_topk",),
     "trim": ("fedavg_trimmed",),
     "client_weights": ("fedavg_weighted", "coalition", "coalition_topk"),
+    "chunk": ("coalition", "coalition_topk"),
     "sketch": ("coalition", "coalition_topk"),
     "sketch_dim": ("coalition", "coalition_topk"),
 }
@@ -123,6 +133,13 @@ def _strategy_extras(args) -> dict:
         extras["client_weights"] = torch.tensor(
             [float(v) for v in args.client_weights.split(",")],
             dtype=torch.float32)
+    if args.chunk is not None:
+        from repro_torch.core import fused
+
+        try:
+            extras["chunk"] = fused.resolve_chunk(args.chunk, 1)
+        except ValueError as e:
+            raise SystemExit(f"--chunk: {e}") from None
     if args.sketch != "identity":
         extras["sketch"] = args.sketch
         if args.sketch_dim is not None:
@@ -184,7 +201,14 @@ def run_fl(args) -> dict:
     from repro_torch.data import loader, synthetic
     from repro_torch.obs import privacy
 
-    # an undersized fleet fails before any data loads
+    # a bad mesh spec or an undersized fleet fails before any data loads
+    if args.mesh is not None:
+        from repro_torch.launch import mesh as mesh_lib
+
+        try:
+            mesh_lib.check_spec(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}") from None
     if args.fleet_size is not None:
         if args.fleet_size < args.clients:
             raise SystemExit(f"--fleet-size {args.fleet_size} must be >= "
@@ -195,6 +219,16 @@ def run_fl(args) -> dict:
                              "scan or python")
     extras = _strategy_extras(args)
     device = resolve_device(args.device)
+    rank = 0
+    if args.mesh is not None:
+        import torch.distributed as dist
+
+        device = mesh_lib.init_distributed(device)
+        rank = dist.get_rank()
+        if rank == 0:
+            print(f"torch.distributed: {dist.get_backend()} backend, world "
+                  f"{dist.get_world_size()}, ranks on {device}",
+                  file=sys.stderr)
     if "client_weights" in extras:      # on the run's device, once
         extras["client_weights"] = extras["client_weights"].to(device)
     torch.backends.cudnn.allow_tf32 = False
@@ -226,7 +260,7 @@ def run_fl(args) -> dict:
                             dp_clip=args.dp_clip, dp_sigma=args.dp_sigma),
         backend=args.backend, engine=args.engine,
         fleet_size=args.fleet_size, attack=args.attack,
-        adv_frac=args.adv_frac, rho_adv=args.rho_adv,
+        adv_frac=args.adv_frac, rho_adv=args.rho_adv, mesh=args.mesh,
         sim=sim.SimConfig(fleet=args.fleet, participation=args.participation,
                           staleness_alpha=args.staleness,
                           deadline=args.deadline,
@@ -259,13 +293,14 @@ def run_fl(args) -> dict:
     from repro_torch import obs
 
     sinks, mem = [], None
-    if args.metrics_out:
+    if args.metrics_out and rank == 0:
         sinks.append(obs.make_sink("jsonl", path=args.metrics_out))
     if args.trace_out:
         mem = obs.InMemorySink()
         sinks.append(mem)
     sink = obs.tee(sinks)
-    if args.metrics_every is not None and sink is None:
+    if args.metrics_every is not None and not (args.metrics_out
+                                               or args.trace_out):
         raise SystemExit("--metrics-every requires --metrics-out or "
                          "--trace-out")
     with _profiler(args.profile_dir, device):
@@ -296,6 +331,10 @@ def run_fl(args) -> dict:
            "local_s": hist.trace.local_s.tolist(),
            "server_s": hist.trace.server_s.tolist(), "history": hist,
            "params": gp, "scenario_metadata": scn.metadata}
+    if fed.mesh is not None:
+        out["mesh"] = mesh_lib.mesh_spec(fed.mesh)
+        out["backend_sharded"] = getattr(
+            getattr(fed.strategy, "backend", None), "name", None)
     if args.fleet_size is not None:
         out["fleet_size"] = args.fleet_size
         out["cohort_size"] = args.clients
@@ -303,7 +342,7 @@ def run_fl(args) -> dict:
         out["metrics_out"] = args.metrics_out
     if args.profile_dir:
         out["profile_dir"] = args.profile_dir
-    if args.trace_out:
+    if args.trace_out and rank == 0:
         from repro_torch.obs import timeline
 
         try:
@@ -355,8 +394,9 @@ def run_fl(args) -> dict:
                 float(np.sum(hist.trace.energy_spent[-1])), 3),
             "devices_exhausted": int(
                 np.sum(hist.trace.energy_exhausted[-1]))})
-    print(json.dumps({k: v for k, v in out.items() if k not in _UNPRINTED},
-                     indent=1, default=float))
+    if rank == 0:
+        print(json.dumps({k: v for k, v in out.items()
+                          if k not in _UNPRINTED}, indent=1, default=float))
     return out
 
 
@@ -380,8 +420,9 @@ def run_pretrain(args) -> dict:
     print(f"pretraining {cfg.name}: "
           f"{sum(p.numel() for p in params.values()):,} params")
 
+    # remat off, as the reference's run_pretrain calls its step
     step_fn, opt = steps_mod.make_train_step(cfg, optimizer=args.optimizer,
-                                             lr=args.lr)
+                                             lr=args.lr, remat=False)
     opt_state = opt.init(params)
     toks = torch.from_numpy(synthetic.lm_tokens(
         args.batch_size * args.steps, args.seq_len + 1, cfg.vocab,
@@ -460,6 +501,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "merging; event_driven as continuous-time "
                          "completion events under per-device energy "
                          "budgets")
+    ap.add_argument("--mesh", default=None,
+                    help="run the coalition round split along D over the "
+                         "ranks of a mesh: 'host', 'production', or "
+                         "explicit 'axis=N' pairs with a 'data' axis (e.g. "
+                         "'data=2' under torchrun --nproc-per-node 2; the "
+                         "product must equal the world size). Validated "
+                         "before any data loads; echoed in the summary")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="column tile of the coalition round's streaming "
+                         "sweeps (coalition methods; default min(D, "
+                         "65536); the cuda kernels sweep in their own "
+                         "tiles)")
     ap.add_argument("--fleet-size", type=int, default=None,
                     help="cohort mode: a fleet of this many devices, of "
                          "which an availability-weighted cohort of "

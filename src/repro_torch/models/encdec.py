@@ -54,32 +54,34 @@ class Encoder(nn.Module):
                                     for p in params["layers"])
         self.ln_f = tf._param_dict(params["ln_f"])
 
-    def forward(self, modal: torch.Tensor) -> torch.Tensor:
+    def forward(self, modal: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
         x = F.linear(modal.to(self.proj.dtype), self.proj)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        for block in self.layers:
-            x = block(x, positions, causal=False)[0]
+        x, _ = tf.run_blocks(self.layers, x, positions, remat=remat,
+                             causal=False)
         return rmsnorm(self.ln_f, x, self.cfg.norm_eps)
 
 
-def encode(model: tf.Transformer, modal: torch.Tensor) -> torch.Tensor:
-    """The encoder memory of ``modal`` (B, T, d_modal): (B, T, d)."""
-    return model.encoder(modal)
+def encode(model: tf.Transformer, modal: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
+    """The encoder memory of ``modal`` (B, T, d_modal): (B, T, d);
+    ``remat`` checkpoints each encoder block."""
+    return model.encoder(modal, remat=remat)
 
 
-def forward(model: tf.Transformer,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(model: tf.Transformer, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward: encode the modal frames, decode the tokens with
-    cross-attention.  Returns (logits, MoE aux)."""
-    memory = encode(model, batch["modal"])
+    cross-attention.  Returns (logits, MoE aux); ``remat`` checkpoints each
+    encoder and decoder block."""
+    memory = encode(model, batch["modal"], remat=remat)
     x = F.embedding(batch["tokens"].long(), model.embed)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in model.layers:
-        x, _, _, a = block(x, positions, memory=memory)
-        aux = aux + a
+    x, aux = tf.run_blocks(model.layers, x, positions, remat=remat,
+                           memory=memory)
     return model.lm_logits(x), aux
 
 

@@ -3,8 +3,8 @@ and the decoder of the encoder-decoder family, as ``repro.models.transformer``.
 
 Entry points:
   init(generator, cfg, device)        -> Transformer (an nn.Module)
-  forward(model, batch)               -> (logits, moe aux)    train / eval
-  loss_fn(model, batch, aux_coef)     -> next-token CE + aux_coef * aux
+  forward(model, batch, remat)        -> (logits, moe aux)    train / eval
+  loss_fn(model, batch, aux_coef, remat) -> next-token CE + aux_coef * aux
   init_cache(cfg, batch, max_len)     -> cache (a dict of tensors)
   prefill(model, batch, cache)        -> (last logits, cache)
   decode_step(model, token, cache)    -> (logits, cache)
@@ -25,11 +25,17 @@ loop.  Each block holds its sub-layers' parameters as ``ParameterDict``s
 the reference's stacked layout (``k``, ``v``: (L, B, Hkv, S_max, Dh);
 ``conv``, ``h``: (L, B, ...); ``memory``; ``index`` a 0-d int32 tensor),
 and :func:`prefill` and :func:`decode_step` update its tensors in place.
+
+``remat=True`` checkpoints each block (the reference's ``jax.checkpoint`` of
+its layer-scan body): only the blocks' boundary activations persist to the
+backward pass, which runs each block's forward again
+(:func:`run_blocks`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import moe as moe_mod
@@ -42,6 +48,23 @@ from repro_torch.models.layers import (attention_apply, attention_init,
 
 def _param_dict(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(t) for k, t in tensors.items()})
+
+
+def run_blocks(blocks, x: torch.Tensor, positions: torch.Tensor, *,
+               remat: bool = False, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """A full-sequence pass through ``blocks``: (x, the sum of their MoE
+    aux losses).  ``remat``: each block under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant), so its inner
+    activations are made again in the backward instead of kept."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in blocks:
+        if remat:
+            x, _, _, a = torch.utils.checkpoint.checkpoint(
+                block, x, positions, use_reentrant=False, **kw)
+        else:
+            x, _, _, a = block(x, positions, **kw)
+        aux = aux + a
+    return x, aux
 
 
 class Block(nn.Module):
@@ -140,20 +163,18 @@ class Transformer(nn.Module):
             logits = logits[..., :cfg.vocab]
         return logits
 
-    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: dict, *,
+                remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence causal forward: (logits (B, S', vocab), the sum of
-        the layers' MoE aux losses)."""
+        the layers' MoE aux losses); ``remat`` checkpoints each block."""
         if self.cfg.enc_dec:
             from repro_torch.models import encdec
 
-            return encdec.forward(self, batch)
+            return encdec.forward(self, batch, remat=remat)
         x, _ = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for block in self.layers:
-            x, _, _, a = block(x, positions)
-            aux = aux + a
+        x, aux = run_blocks(self.layers, x, positions, remat=remat)
         return self.lm_logits(x), aux
 
 
@@ -206,17 +227,19 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return Transformer(cfg, params)
 
 
-def forward(model: Transformer,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward: (logits (B, S', vocab), MoE aux)."""
-    return model(batch)
+def forward(model: Transformer, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward: (logits (B, S', vocab), MoE aux);
+    ``remat`` checkpoints each block."""
+    return model(batch, remat=remat)
 
 
-def loss_fn(model: Transformer, batch: dict, *,
-            aux_coef: float = 0.01) -> torch.Tensor:
+def loss_fn(model: Transformer, batch: dict, *, aux_coef: float = 0.01,
+            remat: bool = False) -> torch.Tensor:
     """Next-token cross-entropy in f32 over the text positions (logsumexp
-    after the one-token shift), plus ``aux_coef`` times the MoE aux loss."""
-    logits, aux = forward(model, batch)
+    after the one-token shift), plus ``aux_coef`` times the MoE aux loss;
+    ``remat`` checkpoints each block."""
+    logits, aux = forward(model, batch, remat=remat)
     tokens = batch["tokens"]
     n_prefix = logits.shape[1] - tokens.shape[1]
     lg = logits[:, n_prefix:-1].float()

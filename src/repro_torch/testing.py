@@ -44,3 +44,61 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def _rank_entry(fn, rank: int, world: int, store: str, out_dir: str,
+                device: str, args: tuple) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, device: str = "cpu",
+              timeout: float = 300.0) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
+    in a gloo process group over a ``file://`` store, with one intra-op
+    thread each (ranks that share ``device``: a card, or the CPU), and
+    return each rank's result in rank order (``torch.save``-able; it goes
+    back through a file).  ``fn`` must be importable by the children.
+    Raises if a rank fails or is still running after ``timeout`` seconds,
+    which then ends every rank."""
+    import tempfile
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro-torch-ranks-") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(fn, r, world, store, tmp, device, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            late = [p for p in procs if p.is_alive()]
+            for p in late:
+                p.kill()
+                p.join()
+        if late:
+            raise TimeoutError(f"{len(late)} of {world} ranks still ran "
+                               f"after {timeout} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"ranks exited with codes {codes}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]

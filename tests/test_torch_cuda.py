@@ -989,3 +989,88 @@ def test_cuda_federation_resume_matches_uninterrupted(tmp_path):
     gp2, hist2 = run(ckpt_dir=str(tmp_path), resume=True)
     assert hist2.assignments == hist.assignments
     _close(gp2["w"], gp["w"])
+
+
+#: the sharded round's column tiles (repro_torch.core.sharded): (D, P, the
+#: rank's tile).  D = 582,026 over 2 is 291,013 columns, odd, so rows are
+#: only 4-byte aligned in f32 and the sweep loads one column at a time;
+#: over 4 the last tile ends in 2 zero columns; rank 1's tile is cut from
+#: the middle of W
+TILE_CASES = [(582_026, 2, 0), (582_026, 2, 1), (582_026, 4, 3),
+              (8_000_000, 2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,parts,rank", TILE_CASES)
+def test_cuda_kernels_on_column_tiles(d, parts, rank, dtype):
+    """The fused round's two kernels and segment_sum on a rank's
+    contiguous tile against their plain versions on that tile, and equal
+    bit for bit to the tile's columns of the whole W's barycenters, θ and
+    segment sums (each column's arithmetic does not depend on the tiling);
+    the padding columns zero.  The partial pass-1 distances of all tiles sum
+    to the whole W's within 5e-6 of max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import sharded
+
+    n, k = 10, 3
+    w, conehot, m = _inputs(n, k, d, dtype)
+    tile = sharded.cut_tile(w, parts, rank)
+    width = -(-d // parts)
+    lo, valid = rank * width, min(width, d - rank * width)
+    assert tile.is_contiguous() and tile.shape == (n, width)
+    if dtype == "float32" and width % 2:
+        assert tfr.route(n, k, width, tile.dtype, tile.data_ptr()) == "exact1"
+    got = _fused_calls(tile, conehot, m)
+    mix = m.contiguous()
+    seg = tsm.segment_sum(mix, tile)
+    torch.cuda.synchronize()
+    want = (tref.center_sq_dists(tile, conehot),
+            *tref.fused_coalition_stats(tile, m))
+    for g, r in zip(got, want):
+        _close(g, r)
+    _close(seg, tref.segment_sum(mix, tile))
+    _, b, theta, _ = got
+    _, b_all, theta_all, _ = _fused_calls(w, conehot, m)
+    seg_all = tsm.segment_sum(mix, w)
+    assert torch.equal(b[:, :valid], b_all[:, lo:lo + valid])
+    assert torch.equal(theta[:valid], theta_all[lo:lo + valid])
+    assert torch.equal(seg[:, :valid], seg_all[:, lo:lo + valid])
+    assert not b[:, valid:].any() and not seg[:, valid:].any()
+    partial = sum(tfr.center_sq_dists(sharded.cut_tile(w, parts, r), conehot)
+                  for r in range(parts))
+    _close(partial, tfr.center_sq_dists(w, conehot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_one_rank_sharded_round_is_dense(dtype):
+    """The sharded cuda round on a one-rank mesh (over nccl, or the gloo
+    group of an earlier test) equals the dense cuda round bit for bit, each
+    kernel launched once.  A group started here is ended here, so the CPU
+    meshes of later tests do not meet nccl."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh as mesh_lib
+
+    started = not dist.is_initialized()
+    mesh_lib.init_distributed("cuda")
+    try:
+        mesh = mesh_lib.parse_mesh("data=1")
+        w, _, _ = _inputs(10, 3, 582_026, dtype)
+        ci = torch.tensor([0, 4, 7], device="cuda")
+        dense = tfz.fused_round(w, ci, backend="cuda")
+        before = dict(tfr.LAUNCHES)
+        got = tfz.fused_round(w, ci, backend=sharded.sharded_backend(
+            "cuda", mesh))
+        torch.cuda.synchronize()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    assert all(tfr.LAUNCHES[name] == before[name] + 1 for name in before)
+    for f in dense._fields:
+        assert torch.equal(getattr(dense, f), getattr(got, f)), f

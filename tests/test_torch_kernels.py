@@ -223,5 +223,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.obs.ledger", "repro_torch.obs.timeline",
                  "repro_torch.serve.frontend", "repro_torch.serve.store",
-                 "repro_torch.models.tiny_transformer"):
+                 "repro_torch.models.tiny_transformer",
+                 "repro_torch.core.sharded", "repro_torch.launch.mesh",
+                 "repro_torch.launch.sharding"):
         assert name in modules, name

@@ -53,7 +53,8 @@ def test_train_steps_match_reference(optimizer):
     toks = jsyn.lm_tokens(3 * 2, 33, jcfg.vocab, seed=1)
     jstep, jo = jsteps.make_train_step(jcfg, optimizer=optimizer, lr=1e-3,
                                        remat=False)
-    tstep, to = tsteps.make_train_step(tcfg, optimizer=optimizer, lr=1e-3)
+    tstep, to = tsteps.make_train_step(tcfg, optimizer=optimizer, lr=1e-3,
+                                       remat=False)
     jstate = jo.init(params)
     tstate = to.init(dict(model.named_parameters()))
     jstep = jax.jit(jstep)
