@@ -207,6 +207,20 @@ In order, it
       SDPA in the kernel's place) and within 1e-4 with the same weights
       cast to f32 and an f32 cache (moonshot: its leading layers that fit
       in 40 GiB of f32);
+  10n. the dry-run on the card (phase n, after the serve phases, under
+      120 s): ``python -m repro_torch.launch.dryrun --arch chatglm3-6b
+      --shape decode_32k --mesh both`` and ``--fl`` as subprocesses on fake
+      CUDA tensors (``2 ok``, the FL line), and, in a process of their own
+      beside the real runs, traces at world 1 (a fake group of one, mesh
+      data=1, model=1) of hymba-1.5b's Adam step at phase m's batch with
+      remat off and of the paper-CNN FL round at N = 256 on ``stream``;
+      each step then runs for real on the card under the same counting
+      mode: traced FLOPs and bytes within 1% of the real run's, the traced
+      peak within 10% of ``max_memory_allocated`` (both over the bytes held
+      at the step's start); prints the three roofline terms beside the
+      step's time in a run without the counting mode; and the counter's
+      own check on the card's torch: on a (4, 4) fake mesh a toy MLP that
+      splits evenly counts 1/16 of its unsharded FLOPs a rank;
   11. prints the card again, one JSON line with every kernel's numbers (a
       line for each kernel at the shape its path gives it, and
       ``sq_dists_to_points``, ``segment_sum`` and ``pairwise_sq_dists``
@@ -317,6 +331,25 @@ MOE_TOL = 2e-4
 #: order of a reduction)
 REMAT_STEPS = 3
 REMAT_RTOL = 1e-6
+#: phase n: the dry-run (``repro_torch.launch.dryrun``) on the card.  Its
+#: CLI as subprocesses on the default device (fake CUDA tensors), each with
+#: the line it must print; then at world 1 (a fake group of one, mesh
+#: data=1, model=1) two steps traced on fake tensors and run for real under
+#: the same counting mode: hymba-1.5b's Adam step at phase m's batch with
+#: remat off, and the paper-CNN FL round at N = 256 on ``stream``; traced
+#: against real FLOPs and bytes within 1%, peak memory within 10%; and a
+#: toy on a (4, 4) fake mesh, a rank's FLOPs x 16 equal to the unsharded
+DRYRUN_RUNS = ((["--arch", "chatglm3-6b", "--shape", "decode_32k", "--mesh",
+                 "both"], "2 ok"),
+               (["--fl"], "FL coalition round"))
+DRYRUN_RTOL = {"flops": 0.01, "bytes": 0.01, "peak": 0.10}
+DRYRUN_FL_CLIENTS = 256
+DRYRUN_BATCH = (10, 129)
+#: the toy's hidden widths on a (4, 4) fake mesh: one the model axis
+#: divides, one it does not
+DRYRUN_TOY_HIDDEN = (128, 130)
+#: the world-1 traces run as ``chip_smoke.py DRYRUN_TRACE OUT``
+DRYRUN_TRACE = "dryrun-trace"
 #: the DP phase's noise multiplier and the bound on its residual's std
 DP_SIGMA = 0.5
 DP_STD_RTOL = 0.02
@@ -2848,6 +2881,243 @@ def run_remat_phase() -> dict:
     return runs
 
 
+def start_dryrun_cli() -> list:
+    """Phase n, first half: start the dry-run's CLI runs as subprocesses on
+    the default device, all at once (they trace on the host, beside the
+    world-1 steps); :func:`check_dryrun_cli` waits for them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for args, want in DRYRUN_RUNS:
+        # files, not pipes: a full pipe would stall the run until it is read
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        runs.append((args, want, time.perf_counter(), out, err,
+                     subprocess.Popen(
+                         [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *args], stdout=out, stderr=err, env=env, cwd=ROOT)))
+    return runs
+
+
+def check_dryrun_cli(runs: list) -> None:
+    """Each CLI run must exit 0 and print its line."""
+    for args, want, t0, out_f, err_f, proc in runs:
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out_f.seek(0)
+        err_f.seek(0)
+        out, err = out_f.read(), err_f.read()
+        print(f"phase n: dryrun {' '.join(args)}: exit {proc.returncode} "
+              f"after {time.perf_counter() - t0:.1f} s")
+        for line in out.splitlines():
+            if line.startswith(("[", "  ", "dry-run")):
+                print("  " + line)
+        if proc.returncode != 0 or want not in out:
+            print(err[-6000:], file=sys.stderr)
+            fail(f"phase n: dryrun {' '.join(args)} did not print {want!r}")
+
+
+def dryrun_hymba_step(mesh, fake: bool):
+    """Phase n's LM step: hymba-1.5b in full, one Adam step at lr 1e-3 on
+    a batch of DRYRUN_BATCH tokens, remat off, its parameters placed as
+    DTensors on ``mesh``; stand-ins under the caller's FakeTensorMode, or
+    real weights from seed 0 and real tokens."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import synthetic
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+
+    cfg = get("hymba-1.5b")
+    if fake:
+        gen = torch.Generator()
+        toks = torch.empty(DRYRUN_BATCH, dtype=torch.int32, device="cuda")
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = torch.from_numpy(synthetic.lm_tokens(
+            *DRYRUN_BATCH, cfg.vocab, seed=0)).cuda()
+    model = tf.init(gen, cfg, device="cuda")
+    step, args = dryrun.lm_step(cfg, "train", mesh, {"batch": {"tokens": toks}},
+                                model=model, optimizer="adam", remat=False,
+                                device="cuda")
+    tokens = DRYRUN_BATCH[0] * DRYRUN_BATCH[1]
+    return step, args, 6.0 * cfg.n_active_params() * tokens
+
+
+def dryrun_fl_step(mesh, fake: bool):
+    """Phase n's FL step: the paper CNN's coalition round at N =
+    DRYRUN_FL_CLIENTS (5 local steps at batch 32, K = 8, the steady round)
+    on ``stream``, every client on this rank; real arguments are seeded
+    (one initial model in every client slot, uniform pixels, labels in
+    0..9, centers 0, 32, ..., 224)."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import cnn
+
+    n = DRYRUN_FL_CLIENTS
+    step, args, d = dryrun.fl_round_step(mesh, n_clients=n, backend="stream",
+                                         device="cuda")
+    if not fake:
+        stacked, batch, state = args
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        one = cnn.init(torch.Generator().manual_seed(0), device="cuda")
+        for k, v in stacked.items():
+            v.copy_(one[k].expand_as(v))
+        batch["x"].uniform_(generator=gen)
+        batch["y"].random_(0, 10, generator=gen)
+        k = state.center_idx.shape[0]
+        state.center_idx.copy_(torch.arange(k, device="cuda") * (n // k))
+    return step, args, 6.0 * d * n * 32 * 5
+
+
+#: phase n's world-1 steps: (label, builder)
+DRYRUN_STEPS = (("hymba-1.5b Adam step", "dryrun_hymba_step"),
+                (f"FL round N={DRYRUN_FL_CLIENTS} stream", "dryrun_fl_step"))
+
+
+def dryrun_trace(out_path: str) -> None:
+    """Phase n's traces (``chip_smoke.py DRYRUN_TRACE OUT``, a process of
+    its own, beside the real runs): each world-1 step on fake CUDA tensors
+    under the counting mode, its counts written to OUT as JSON."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import analysis, dryrun
+
+    mesh = dryrun.fake_mesh({"data": 1, "model": 1}, "cuda")
+    out = {}
+    try:
+        for label, builder in DRYRUN_STEPS:
+            t0 = time.perf_counter()
+            with FakeTensorMode():
+                step, args, model_flops = globals()[builder](mesh, True)
+                c = analysis.Counter()
+                c.hold(args)
+                with dryrun.counted_step(c) as reshard:
+                    step(*args)
+            out[label] = {
+                "flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
+                "held": c.held_bytes, "resharded": dict(reshard.counts),
+                "trace_s": time.perf_counter() - t0,
+                "roofline": analysis.roofline(
+                    c, chips=1, model_flops_global=model_flops)}
+            del step, args
+        # the counter's own check on this torch: on a (4, 4) fake mesh a
+        # rank counts 1/16 of an evenly split toy's FLOPs
+        from repro_torch.testing import sharded_toy_flops
+
+        out["toy"] = {str(h): sharded_toy_flops(h, "cuda")
+                      for h in DRYRUN_TOY_HIDDEN}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_real(label: str, build, mesh) -> dict:
+    """Phase n at world 1: ``build(mesh, False)``'s step run for real, under
+    the counting mode from a reset peak (cuBLAS and cuDNN are warm from the
+    earlier phases), then timed without it."""
+    import torch
+
+    from repro_torch.launch import analysis, dryrun
+
+    step, args, _ = build(mesh, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    real = analysis.Counter()
+    real.hold(args)
+    with dryrun.counted_step(real):
+        step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    t0 = time.perf_counter()
+    with dryrun.counted_step(None):
+        step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del step, args
+    torch.cuda.empty_cache()
+    return {"flops": real.flops, "bytes": real.bytes, "peak": peak,
+            "held": start, "counted_peak": real.peak_bytes, "step_s": step_s}
+
+
+def check_dryrun_steps(traced: dict, real: dict) -> None:
+    """Each world-1 step's traced FLOPs and bytes within 1% of the real
+    run's, its traced peak within 10% of ``max_memory_allocated`` over the
+    bytes held at the start; prints the roofline beside the step time.
+    The toy on a (4, 4) fake mesh: a rank's FLOPs x 16 equal to the
+    unsharded count where every dim divides, above it where one does not."""
+    even, odd = (traced["toy"][str(h)] for h in DRYRUN_TOY_HIDDEN)
+    print(f"phase n toy on a (4, 4) fake mesh: hidden {even['hidden']} rank "
+          f"{even['rank_flops']} x 16 against {even['global_flops']}; hidden "
+          f"{odd['hidden']} rank {odd['rank_flops']} x 16 against "
+          f"{odd['global_flops']} (useful {odd['useful_ratio']:.3f})")
+    if even["rank_flops"] * 16 != even["global_flops"] or \
+            odd["rank_flops"] * 16 <= odd["global_flops"] or \
+            not 0 < odd["useful_ratio"] <= 1:
+        fail("phase n: the counter does not count a rank's share of the toy")
+    for label, _ in DRYRUN_STEPS:
+        t, r = traced[label], real[label]
+        roof = t["roofline"]
+        print(f"phase n {label}: flops traced {t['flops']:.6e} real "
+              f"{r['flops']:.6e}; bytes traced {t['bytes']:.6e} real "
+              f"{r['bytes']:.6e}; peak traced {t['peak'] / 2**30:.4f} GiB "
+              f"over {t['held'] / 2**30:.4f} GiB held, max_memory_allocated "
+              f"{r['peak'] / 2**30:.4f} GiB over {r['held'] / 2**30:.4f} "
+              f"GiB allocated at the start (the real run's own count "
+              f"{r['counted_peak'] / 2**30:.4f} GiB); roofline compute "
+              f"{roof['compute_s']:.4e} s, memory {roof['memory_s']:.4e} s, "
+              f"collective {roof['collective_s']:.4e} s "
+              f"({roof['bottleneck']}) beside a measured step of "
+              f"{r['step_s']:.4f} s (traced in {t['trace_s']:.1f} s, "
+              f"fallbacks {t['resharded']}) on {card_line()}")
+        for key, tol in DRYRUN_RTOL.items():
+            if abs(t[key] - r[key]) > tol * abs(r[key]):
+                fail(f"phase n {label}: traced {key} {t[key]} is not within "
+                     f"{tol:.0%} of the real run's {r[key]}")
+
+
+def run_dryrun_phase() -> dict:
+    """Phase n: the dry-run's CLI and the world-1 traces in processes of
+    their own, beside the world-1 steps' real runs here; then the checks."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cli = start_dryrun_cli()
+    fd, trace_path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    tracer = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               DRYRUN_TRACE, trace_path])
+    try:
+        mesh = dryrun.fake_mesh({"data": 1, "model": 1}, "cuda")
+        try:
+            real = {label: dryrun_real(label, globals()[builder], mesh)
+                    for label, builder in DRYRUN_STEPS}
+        finally:
+            dist.destroy_process_group()
+        if tracer.wait(timeout=900) != 0:
+            fail(f"phase n: the world-1 traces exited {tracer.returncode}")
+        with open(trace_path) as f:
+            traced = json.load(f)
+    finally:
+        if tracer.poll() is None:
+            tracer.kill()
+            tracer.wait()
+        os.unlink(trace_path)
+        check_dryrun_cli(cli)
+    check_dryrun_steps(traced, real)
+    print(f"phase n (the dry-run on the card): {time.perf_counter() - t0:.1f} s")
+    return {"traced": traced, "real": real}
+
+
 def main() -> int:
     import torch
 
@@ -2856,6 +3126,9 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == [RESUME_CHECK]:
         resume_check(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == [DRYRUN_TRACE]:
+        dryrun_trace(sys.argv[2])
         return 0
     from repro_torch.kernels import build
 
@@ -2919,6 +3192,7 @@ def main() -> int:
     run_moe_ep_phase()
     serves = {arch: run_serve_phase(arch, extra)
               for arch, extra in SERVE_PHASES}
+    run_dryrun_phase()
     for arch, r in serves.items():
         print(f"serve summary {arch}: prefill_s {r['prefill_s']!r}, "
               f"decode_s_per_tok {r['decode_s_per_tok']!r}, peak "

@@ -9,6 +9,8 @@ of the plain version as its backward, as the reference's ``custom_vjp``.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import is_traceable_wrapper_subclass
 
 from repro_torch.kernels import (flash_attention as _fa, fused_round,
                                  pairwise_dist, ref, segment_mean)
@@ -28,6 +30,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def _on_card(w: torch.Tensor) -> bool:
+    if isinstance(w, FakeTensor) or is_traceable_wrapper_subclass(w):
+        # a kernel reads real memory through data_ptr: a fake tensor (the
+        # dry-run's) or a DTensor has none to give it
+        raise ValueError(f"no kernel for a {type(w).__name__}: the kernels "
+                         "take plain tensors with storage (trace the plain "
+                         "versions instead)")
     if w.device.type == "cuda":
         return True
     if w.device.type == "cpu":

@@ -17,9 +17,10 @@ as well as a DeviceMesh (``mesh.axis_sizes``).  Trees are the port's:
 the port's layouts: the reference's rule for a dense (in, out) weight
 applies to the port's (out, in) weight transposed, and the port keeps no
 leading layer axis (the reference's stacked L dim, which is never
-sharded).  :func:`with_named` turns specs into DTensor placements;
-placing abstract shapes for a lowering (the reference's ``attach``) waits
-for the dry-run tooling.
+sharded).  :func:`with_named` turns specs into DTensor placements, and
+:func:`attach` places a tree of stand-ins (or of tensors) as DTensors by
+their specs, as the reference's ``attach`` gives its abstract shapes their
+shardings for the dry-run (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -228,3 +229,46 @@ def with_named(mesh, specs: Mapping[str, Any]) -> dict:
     """Each spec of a (nested) dict as its DTensor placements on ``mesh``."""
     return {k: (with_named(mesh, v) if isinstance(v, Mapping)
                 else placements(mesh, v)) for k, v in specs.items()}
+
+
+def local_block(mesh, shape, places) -> tuple[list[int], list[int]]:
+    """(shape, offset) of this rank's block of a tensor of ``shape`` under
+    ``places``: each ``Shard(d)`` cuts dim d into equal parts over its mesh
+    dim, the mesh dims in order (the rules shard only dims that divide)."""
+    from torch.distributed.tensor import Shard
+
+    size, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(places):
+        if isinstance(p, Shard):
+            size[p.dim] //= mesh.size(m)
+            offset[p.dim] += coord[m] * size[p.dim]
+    return size, offset
+
+
+def attach(specs: Mapping[str, Any], tree: Mapping[str, Any], mesh) -> dict:
+    """Place a (nested) dict of tensors as DTensors on ``mesh`` by their
+    specs: each leaf's rank-local block (a slice of it; of a ``meta`` or
+    fake stand-in, a stand-in again, with no memory) under the spec's
+    :func:`placements`, with the leaf's global shape and stride."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            out[k] = attach(specs[k], leaf, mesh)
+            continue
+        places = placements(mesh, specs[k])
+        size, offset = local_block(mesh, leaf.shape, places)
+        local = leaf
+        for d, (n, lo) in enumerate(zip(size, offset)):
+            if n != leaf.shape[d]:
+                local = local.narrow(d, lo, n)
+        # a block is a storage of its own, as a rank holds only its block
+        local = local.contiguous() if local is leaf else \
+            local.clone(memory_format=torch.contiguous_format)
+        out[k] = DTensor.from_local(local, mesh, places,
+                                    run_check=False, shape=leaf.shape,
+                                    stride=leaf.stride())
+    return out

@@ -39,7 +39,11 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
                    batch: dict) -> torch.Tensor:
         params = dict(model.named_parameters())
         loss = tf.loss_fn(model, batch, remat=remat)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # a parameter the loss does not read (the encoder-decoder family's
+        # top-level modal projector; its encoder has its own) gets a zero
+        # gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
         opt.step(params, dict(zip(params, grads)), opt_state)
         return loss.detach()
 

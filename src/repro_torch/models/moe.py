@@ -87,6 +87,15 @@ class Dispatch(NamedTuple):
     probs: torch.Tensor
 
 
+def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n): the same
+    int64 counts, with an output shape that does not depend on the data
+    (so the step also traces on fake tensors, :mod:`repro_torch.launch.dryrun`)."""
+    ids = ids.long()
+    return torch.zeros((n,), dtype=torch.long, device=ids.device).scatter_add(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(params: Params, cfg: ModelConfig, xt: torch.Tensor,
              cap: int) -> Dispatch:
     """Route the tokens xt (T, d): softmax of the f32 router, top-k, gates
@@ -100,7 +109,7 @@ def dispatch(params: Params, cfg: ModelConfig, xt: torch.Tensor,
     flat_e = expert_idx.reshape(-1)                            # (T*K,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)               # (E,)
+    counts = _bincount(flat_e, e)                               # (E,)
     starts = torch.cumsum(counts, 0) - counts                  # exclusive
     pos = torch.arange(t * k, device=xt.device) - starts[sorted_e]
     keep = pos < cap
@@ -189,7 +198,7 @@ def _sort_dispatch(x_flat: torch.Tensor, ids: torch.Tensor, n_buckets: int,
     key = torch.where(ids < 0, torch.full_like(ids, n_buckets), ids)
     order = torch.argsort(key, stable=True)
     sorted_ids = key[order]
-    counts = torch.bincount(key, minlength=n_buckets + 1)
+    counts = _bincount(key, n_buckets + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(m, device=x_flat.device) - starts[sorted_ids]
     keep_sorted = (pos < cap) & (sorted_ids < n_buckets)
@@ -320,7 +329,7 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         out = _all_reduce(out, mesh.get_group(model_axis))
 
     # the Switch aux loss over every token of the group
-    counts_g = torch.bincount(flat_e, minlength=e).float()
+    counts_g = _bincount(flat_e, e).float()
     probs_sum = probs.sum(0)
     for axis in token_axes:
         g = mesh.get_group(axis)

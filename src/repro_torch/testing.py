@@ -102,3 +102,43 @@ def run_ranks(fn, world: int, *args, device: str = "cpu",
             raise RuntimeError(f"ranks exited with codes {codes}")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
+
+
+def sharded_toy_flops(hidden: int, device: str = "cpu") -> dict:
+    """Count a two-layer MLP's forward (batch 32, width 64, ``hidden``
+    wide) unsharded, then per rank on a (4, 4) fake mesh, the batch over
+    ``data`` and the hidden dim over ``model`` where the model axis divides
+    it (else the weights replicate, by the sharding rules' ``_fit``), on
+    stand-ins of ``device`` type.  Where every dim divides, a rank counts
+    1/16 of the unsharded FLOPs: a check that the counter sees the
+    rank-local ops and not DTensor's shape propagation.  Starts (or
+    restarts) the default process group as a fake one of 16 ranks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import analysis, dryrun, sharding
+
+    batch, d = 32, 64
+    sizes = {"data": 4, "model": 4}
+    mesh = dryrun.fake_mesh(sizes, device)
+    specs = {"x": ("data", None),
+             "w1": (None, sharding._fit(sizes, hidden, "model")),
+             "w2": (sharding._fit(sizes, hidden, "model"), None)}
+
+    def fwd(x, w1, w2):
+        return torch.relu(x @ w1) @ w2
+
+    with FakeTensorMode():
+        tensors = {"x": torch.empty(batch, d, device=device),
+                   "w1": torch.empty(d, hidden, device=device),
+                   "w2": torch.empty(hidden, d, device=device)}
+        whole = analysis.Counter()
+        with whole:
+            fwd(**tensors)
+        placed = sharding.attach(specs, tensors, mesh)
+        rank = analysis.Counter()
+        with dryrun.counted_step(rank):
+            fwd(**placed)
+    roof = analysis.roofline(rank, chips=16, model_flops_global=whole.flops)
+    return {"hidden": hidden, "global_flops": whole.flops,
+            "rank_flops": rank.flops, "useful_ratio": roof["useful_ratio"],
+            "collectives": rank.collectives}

@@ -1,9 +1,12 @@
 """The port's LM pretraining step, optimizers and ``--mode pretrain`` CLI
 against the reference's, on the CPU.
 
-- Three steps of ``make_train_step`` at the reduced hymba-1.5b (f32), with
+- Three steps of ``make_train_step`` at the reduced hymba-1.5b (f32) and
+  the reduced seamless-m4t-large-v2 (with a seeded ``modal`` input), with
   Adam and with SGD momentum 0.9, from the reference's init carried across
-  and on the same ``lm_tokens`` batches: losses within 1e-3 relative.
+  and on the same ``lm_tokens`` batches: losses within 1e-3 relative, the
+  parameters' moves within 1e-3 of the reference's norm, and seamless's
+  unread top-level projector unmoved in both.
 - ``adam``, ``adamw`` and ``sgd(momentum, nesterov)`` against the
   reference's on random trees over three steps: f32 leaves within 1e-6;
   bf16 leaves (SGD keeps them bf16) within one bf16 step of the leaf's
@@ -44,13 +47,21 @@ cap_cpu_threads()
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
-def test_train_steps_match_reference(optimizer):
-    jcfg = jreg.reduced(jreg.get("hymba-1.5b"))
-    tcfg = treg.reduced(treg.get("hymba-1.5b"))
+@pytest.mark.parametrize("arch,optimizer", [
+    pytest.param("hymba-1.5b", "adam", id="adam"),
+    pytest.param("hymba-1.5b", "sgd", id="sgd"),
+    pytest.param("seamless-m4t-large-v2", "adam", id="seamless-adam"),
+    pytest.param("seamless-m4t-large-v2", "sgd", id="seamless-sgd")])
+def test_train_steps_match_reference(arch, optimizer):
+    jcfg = jreg.reduced(jreg.get(arch))
+    tcfg = treg.reduced(treg.get(arch))
     params = jtf.init(jax.random.key(0), jcfg)
     model = carry.transformer_from_jax(jax.tree.map(np.asarray, params), tcfg)
     toks = jsyn.lm_tokens(3 * 2, 33, jcfg.vocab, seed=1)
+    # the encoder-decoder family's encoder input, seeded
+    modal = (np.random.default_rng(2).standard_normal(
+        (3 * 2, jcfg.n_modal_tokens, jcfg.d_modal)).astype(np.float32)
+        if jcfg.modality else None)
     jstep, jo = jsteps.make_train_step(jcfg, optimizer=optimizer, lr=1e-3,
                                        remat=False)
     tstep, to = tsteps.make_train_step(tcfg, optimizer=optimizer, lr=1e-3,
@@ -59,22 +70,33 @@ def test_train_steps_match_reference(optimizer):
     tstate = to.init(dict(model.named_parameters()))
     jstep = jax.jit(jstep)
     for i in range(3):
-        batch = toks[2 * i:2 * i + 2]
-        params, jstate, jloss = jstep(params, jstate,
-                                      {"tokens": jnp.asarray(batch)})
-        tloss = tstep(model, tstate, {"tokens": torch.from_numpy(batch)})
+        jbatch = {"tokens": jnp.asarray(toks[2 * i:2 * i + 2])}
+        tbatch = {"tokens": torch.from_numpy(toks[2 * i:2 * i + 2])}
+        if modal is not None:
+            jbatch["modal"] = jnp.asarray(modal[2 * i:2 * i + 2])
+            tbatch["modal"] = torch.from_numpy(modal[2 * i:2 * i + 2])
+        params, jstate, jloss = jstep(params, jstate, jbatch)
+        tloss = tstep(model, tstate, tbatch)
         assert abs(float(tloss) - float(jloss)) <= 1e-3 * abs(float(jloss))
     # the parameters moved the same way: Adam's update of a coordinate
     # whose gradient is near 0 is about ±lr whatever the gradient's size,
     # so the moves are compared as whole vectors
-    init = jax.tree.leaves(jax.tree.map(np.asarray, jtf.init(
-        jax.random.key(0), jcfg)))
+    init_tree = jax.tree.map(np.asarray, jtf.init(jax.random.key(0), jcfg))
+    init = jax.tree.leaves(init_tree)
+    port = carry.transformer_to_jax(model)
     moved_port = np.concatenate([(a - i).ravel() for a, i in zip(
-        jax.tree.leaves(carry.transformer_to_jax(model)), init)])
+        jax.tree.leaves(port), init)])
     moved_ref = np.concatenate([(np.asarray(b) - i).ravel() for b, i in zip(
         jax.tree.leaves(params), init)])
     assert (np.linalg.norm(moved_port - moved_ref)
             <= 1e-3 * np.linalg.norm(moved_ref))
+    if jcfg.enc_dec:
+        # the top-level modal projector, which the loss does not read (the
+        # encoder has its own): jax.grad gives it zeros, and neither
+        # optimizer moves it, in the reference or in the port
+        np.testing.assert_array_equal(np.asarray(params["proj"]),
+                                      init_tree["proj"])
+        np.testing.assert_array_equal(port["proj"], init_tree["proj"])
 
 
 def _tree(seed):
