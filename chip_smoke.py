@@ -209,11 +209,15 @@ In order, it
       in 40 GiB of f32);
   10n. the dry-run on the card (phase n, after the serve phases, under
       120 s): ``python -m repro_torch.launch.dryrun --arch chatglm3-6b
-      --shape decode_32k --mesh both`` and ``--fl`` as subprocesses on fake
-      CUDA tensors (``2 ok``, the FL line), and, in a process of their own
-      beside the real runs, traces at world 1 (a fake group of one, mesh
-      data=1, model=1) of hymba-1.5b's Adam step at phase m's batch with
-      remat off and of the paper-CNN FL round at N = 256 on ``stream``;
+      --shape decode_32k --mesh both``, ``--fl``, ``--arch falcon-mamba-7b
+      --shape train_4k`` and ``--arch hymba-1.5b --shape prefill_32k`` as
+      subprocesses on fake CUDA tensors (``2 ok``, the FL line, ``1 ok``
+      each, every record line with its three terms printed; the SSM
+      scan is one operator, ``repro_torch::ssm_scan``), and, in a process
+      of their own beside the real runs, traces at world 1 (a fake group
+      of one, mesh data=1, model=1) of hymba-1.5b's Adam step at phase m's
+      batch with remat off and of the paper-CNN FL round at N = 256 on
+      ``stream``;
       each step then runs for real on the card under the same counting
       mode: traced FLOPs and bytes within 1% of the real run's, the traced
       peak within 10% of ``max_memory_allocated`` (both over the bytes held
@@ -341,8 +345,17 @@ REMAT_RTOL = 1e-6
 #: toy on a (4, 4) fake mesh, a rank's FLOPs x 16 equal to the unsharded
 DRYRUN_RUNS = ((["--arch", "chatglm3-6b", "--shape", "decode_32k", "--mesh",
                  "both"], "2 ok"),
-               (["--fl"], "FL coalition round"))
+               (["--fl"], "FL coalition round"),
+               # the SSM scan as one operator: the two SSM archs' train and
+               # prefill steps trace at full length on the 16x16 mesh
+               (["--arch", "falcon-mamba-7b", "--shape", "train_4k"],
+                "1 ok, 0 skipped"),
+               (["--arch", "hymba-1.5b", "--shape", "prefill_32k"],
+                "1 ok, 0 skipped"))
 DRYRUN_RTOL = {"flops": 0.01, "bytes": 0.01, "peak": 0.10}
+#: the hymba step's traced FLOPs to 7 digits: the registry's count of the
+#: SSM chunk loop run inline, which the scan operator's counts keep
+DRYRUN_HYMBA_FLOPS = "1.257711e+13"
 DRYRUN_FL_CLIENTS = 256
 DRYRUN_BATCH = (10, 129)
 #: the toy's hidden widths on a (4, 4) fake mesh: one the model axis
@@ -3081,6 +3094,10 @@ def check_dryrun_steps(traced: dict, real: dict) -> None:
             if abs(t[key] - r[key]) > tol * abs(r[key]):
                 fail(f"phase n {label}: traced {key} {t[key]} is not within "
                      f"{tol:.0%} of the real run's {r[key]}")
+    hymba = traced[DRYRUN_STEPS[0][0]]["flops"]
+    if f"{hymba:.6e}" != DRYRUN_HYMBA_FLOPS:
+        fail(f"phase n: the hymba step counts {hymba:.6e} FLOPs, not "
+             f"{DRYRUN_HYMBA_FLOPS}")
 
 
 def run_dryrun_phase() -> dict:

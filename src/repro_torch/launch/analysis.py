@@ -17,6 +17,10 @@ Per rank it counts:
               as if every output channel saw every input channel, so a
               vmapped local phase (``vmap`` turns N clients' convolutions
               into one of ``groups`` = N) would count ~N times its work;
+              the port's registered operators (the SSM scan and its
+              backward, :mod:`repro_torch.models.ssm_scan`) by their own
+              cost functions, which count their bodies' eager ops (FLOPs,
+              bytes and the live bytes inside the op);
   bytes       the sum of each aten op's input and output bytes, views
               free: the traffic of an unfused eager program, the
               counterpart of XLA's "bytes accessed";
@@ -50,6 +54,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import conv_flop_count, flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.models import ssm_scan
 
 try:
     from torch.distributed.tensor import DTensor as _DTENSOR
@@ -179,9 +185,19 @@ def _conv_backward_flops(grad_out, x, w, _bias, _stride, _padding,
     return flops
 
 
+#: the port's registered operators -> their bodies' (FLOPs, bytes, peak
+#: bytes over the inputs) as the counter would count the bodies' own ops
+BODY_COSTS = {torch.ops.repro_torch.ssm_scan.default: ssm_scan.forward_cost,
+              torch.ops.repro_torch.ssm_scan_backward.default:
+                  ssm_scan.backward_cost}
+
+
 def op_flops(func, args, kwargs, out) -> int:
     """FLOPs of one aten op by the registry (0 for ops it does not list),
-    with the convolution backward counted per group."""
+    with the convolution backward counted per group, and of one of the
+    port's registered operators by its cost function."""
+    if func in BODY_COSTS:
+        return BODY_COSTS[func](*args, **kwargs)[0]
     packet = func._overloadpacket
     if packet is torch.ops.aten.convolution_backward:
         return _conv_backward_flops(*args, **kwargs, out=out)
@@ -256,6 +272,11 @@ class Counter(TorchDispatchMode):
     those :meth:`hold` counted as held at the start).  Ops on DTensors are
     passed down to DTensor (which runs them on the shards, where this mode
     counts them), and DTensor's shape propagation is not counted.
+
+    A backward on CUDA tensors (fake ones too) runs on autograd's device
+    thread beside the calling thread, and a storage is freed in whichever
+    thread drops it last, so the counts change under one lock and "inside
+    an op" is a per-thread state.
     """
 
     def __init__(self):
@@ -268,24 +289,27 @@ class Counter(TorchDispatchMode):
         self.held_bytes = 0
         self._peak_live = 0
         self._storages = WeakIdKeyDictionary()
-        self._inside = False
+        self._lock = threading.RLock()
+        self._thread = threading.local()
 
     def _free(self, size: int):
         def cb(_ref):
-            self.live_bytes -= size
+            with self._lock:
+                self.live_bytes -= size
         return cb
 
     def _track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
-        if st in self._storages:
-            return
-        size = st.nbytes()
-        if t.device.type == "cuda":
-            size = -(-size // 512) * 512
-        self._storages[st] = None
-        weakref.finalize(st, self._free(size), None)
-        self.live_bytes += size
-        self._peak_live = max(self._peak_live, self.live_bytes)
+        with self._lock:
+            if st in self._storages:
+                return
+            size = st.nbytes()
+            if t.device.type == "cuda":
+                size = -(-size // 512) * 512
+            self._storages[st] = None
+            weakref.finalize(st, self._free(size), None)
+            self.live_bytes += size
+            self._peak_live = max(self._peak_live, self.live_bytes)
 
     def hold(self, tree) -> None:
         """Count a tree's storages (a module's parameters and buffers, a
@@ -321,15 +345,23 @@ class Counter(TorchDispatchMode):
         if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
                                         for t in types):
             return NotImplemented
-        if self._inside or getattr(_SHADOW, "depth", 0):
+        if getattr(self._thread, "inside", False) or \
+                getattr(_SHADOW, "depth", 0):
             return func(*args, **kwargs)
         # an op that runs other ops inside it (a fake tensor's
         # decomposition, a data check) is one op of the program
-        self._inside = True
+        live = self.live_bytes
+        self._thread.inside = True
         try:
             out = func(*args, **kwargs)
         finally:
-            self._inside = False
+            self._thread.inside = False
+        with self._lock:
+            return self._count(func, args, kwargs, out, live)
+
+    def _count(self, func, args, kwargs, out, live: int):
+        """Count one op that has run (``live``: the live bytes before it);
+        returns its result."""
         outs = _tensors(out)
         kind, view, aliases, alloc_only = _op_info(func)
         # c10d's ops write into their first argument (the output tensors)
@@ -347,6 +379,12 @@ class Counter(TorchDispatchMode):
             self.collectives[where] += moved
             return out
         if func.namespace == "prim" or view:
+            return out
+        if func in BODY_COSTS:
+            flops, nbytes, peak = BODY_COSTS[func](*args, **kwargs)
+            self.flops += flops
+            self.bytes += nbytes
+            self._peak_live = max(self._peak_live, live + peak)
             return out
         self.flops += op_flops(func, args, kwargs, out)
         if not alloc_only:

@@ -34,11 +34,13 @@ hand-written kernels refuse fake tensors.  On a CPU mesh DTensor moves a
 shard from one dim to another by an all-gather and a chunk, where on
 cards it runs an all-to-all, so ``--device cpu`` over-counts those moves.
 
-A combination whose trace takes longer than ``--trace-timeout`` seconds
+The SSM scan is one registered operator
+(:mod:`repro_torch.models.ssm_scan`) with its own sharding rule (the batch
+over the batch axes, d_inner over ``model``) and counts, so a layer's scan
+is one op to the trace, not a dispatched loop of L x S steps.  A
+combination whose trace takes longer than ``--trace-timeout`` seconds
 (default :data:`TRACE_TIMEOUT_S`; 0: no limit) is recorded as an error
-naming the model code it was in: the SSM scan is a Python loop of one step
-a token, so an SSM arch's train or prefill step is L x S dispatches and
-would trace for over an hour.
+naming the model code it was in.
 
 Importing this module starts no process group.
 """
@@ -183,6 +185,11 @@ def _replicated(t, level: int):
     places[len(places) - level:] = [Replicate()] * level
     if places == list(t.placements):
         return t
+    if not torch.is_grad_enabled():
+        # without grad, redistributing a tensor that requires grad (a
+        # parameter in a prefill) detaches its result in place, and some
+        # torch versions give DTensor no rule for aten.detach_
+        t = t.detach()
     return t.redistribute(t.device_mesh, places)
 
 

@@ -21,9 +21,13 @@ sharded).  :func:`with_named` turns specs into DTensor placements, and
 :func:`attach` places a tree of stand-ins (or of tensors) as DTensors by
 their specs, as the reference's ``attach`` gives its abstract shapes their
 shardings for the dry-run (:mod:`repro_torch.launch.dryrun`).
+:func:`placements` also registers, once, DTensor's sharding rules for the
+port's own operators (:func:`register_op_rules`), so every DTensor placed
+by these specs finds them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Mapping
 
@@ -211,11 +215,52 @@ def fused_stats_specs(axis: str = "data"):
                       med_d2=(), theta=(axis,))
 
 
+@functools.cache
+def register_op_rules() -> None:
+    """Register DTensor's sharding rules for the SSM scan's two operators
+    (:mod:`repro_torch.models.ssm_scan`), once.  On each mesh dim a rule
+    offers every tensor replicated; the batch dim sharded on every batched
+    tensor, ``a`` replicated (its gradient a partial sum); or d_inner
+    sharded on delta, u, ``a``, h0, y and the carries, as the SSM specs
+    shard ``A_log``, ``dt_proj`` and ``conv_w`` over ``model``, with bmat
+    and cmat replicated (their gradients partial sums).  Without a rule
+    DTensor would refuse the op, and the dry-run's fallback would run it
+    replicated over ``model``."""
+    import torch
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    from repro_torch.models import ssm_scan  # noqa: F401  (the ops)
+
+    r, b, part = Replicate(), Shard(0), Partial()
+
+    # outputs: y, h_last, carries; inputs: delta, u, bmat, cmat, a, h0,
+    # chunk, save
+    @register_sharding(torch.ops.repro_torch.ssm_scan.default)
+    def _scan_rule(*_args):
+        return [([r] * 3, [r] * 6 + [None] * 2),
+                ([b] * 3, [b] * 4 + [r, b] + [None] * 2),
+                ([Shard(2), Shard(1), Shard(2)],
+                 [Shard(2), Shard(2), r, r, Shard(0), Shard(1)]
+                 + [None] * 2)]
+
+    # outputs: the gradients of delta, u, bmat, cmat, a, h0; inputs: gy,
+    # gh, delta, u, bmat, cmat, a, carries, chunk
+    @register_sharding(torch.ops.repro_torch.ssm_scan_backward.default)
+    def _scan_backward_rule(*_args):
+        return [([r] * 6, [r] * 8 + [None]),
+                ([b] * 4 + [part, b], [b] * 6 + [r, b, None]),
+                ([Shard(2), Shard(2), part, part, Shard(0), Shard(1)],
+                 [Shard(2), Shard(1), Shard(2), Shard(2), r, r, Shard(0),
+                  Shard(2), None])]
+
+
 def placements(mesh, spec: Spec) -> list:
     """DTensor placements of one spec on a DeviceMesh: ``Shard(d)`` on each
     mesh dim that shards tensor dim d, ``Replicate()`` on the others."""
     from torch.distributed.tensor import Replicate, Shard
 
+    register_op_rules()
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, axis in enumerate(spec):

@@ -7,12 +7,15 @@ by an outer scan over sequence chunks, each rematerialised under
 
     h_t = exp(Δ_t·A)·h_{t-1} + Δ_t·B_t·x_t,   y_t = <C_t, h_t> + D·x_t.
 
-Here the outer scan is a Python loop over chunks, each under
-``torch.utils.checkpoint`` (non-reentrant) while gradients are on, and the
-inner scan a Python loop of two launches a step (``addcmul`` and a batched
-product).  The reference has no Pallas kernel here, so neither has the
-port; the loop is plain PyTorch.  Weights are (out, in) like every dense
-weight of the port; ``conv_w`` stays (k, d_inner) as in the reference.
+Here both scans are one registered operator,
+``torch.ops.repro_torch.ssm_scan`` (:mod:`repro_torch.models.ssm_scan`),
+whose body is a Python loop over chunks and, inside each, over steps (two
+launches a step: ``addcmul`` and a batched product); it keeps each chunk's
+starting state, as the reference's checkpointed outer scan does, and its
+backward scans the chunks in reverse from them.  The reference has no
+Pallas kernel here, so neither has the port; the loop is plain PyTorch.
+Weights are (out, in) like every dense weight of the port; ``conv_w``
+stays (k, d_inner) as in the reference.
 
 Decode carries a state ``{'conv': (B, k - 1, d_inner), 'h': (B, d_inner,
 N) f32}``: the causal conv's last k - 1 inputs and the recurrence.  A
@@ -21,15 +24,14 @@ return_state=True)``), a decode token advances it by :func:`ssm_step`.
 """
 from __future__ import annotations
 
-import math
 from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.models.ssm_scan import scan
 
 Params = Mapping[str, torch.Tensor]
 
@@ -87,22 +89,6 @@ def _causal_conv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return out.to(x.dtype), new_cache
 
 
-def _chunk(h, dl, bm, cm, uu, a):
-    """One chunk of the recurrence.  h (B, di, N); dl, uu (B, L, di); bm, cm
-    (B, L, N); a (di, N).  Returns the last h and y (B, L, di).  The steps'
-    slices come from ``unbind``, whose backward is one stack: indexing
-    ``da[:, t]`` instead would make autograd fill and add a full
-    (B, L, di, N) gradient for every step."""
-    da = torch.exp(dl[..., None] * a)                          # (B, L, di, N)
-    dbu = (dl * uu)[..., None] * bm[..., None, :]              # (B, L, di, N)
-    ys = []
-    for da_t, dbu_t, c_t in zip(da.unbind(1), dbu.unbind(1),
-                                cm[..., None].unbind(1)):
-        h = torch.addcmul(dbu_t, h, da_t)
-        ys.append(torch.bmm(h, c_t)[..., 0])
-    return h, torch.stack(ys, dim=1)
-
-
 def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
               chunk: int = 64, state: Optional[dict] = None,
               return_state: bool = False):
@@ -111,7 +97,7 @@ def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     decode state ``{'conv', 'h'}`` to continue from (zeros when None);
     ``return_state=True`` also returns the final ``{'conv', 'h'}``, exact
     (the padded steps leave h unchanged), the conv in ``conv_w``'s dtype."""
-    b, s, _ = x.shape
+    b = x.shape[0]
     di, n = cfg.d_inner, cfg.ssm_state
     u, z = torch.chunk(F.linear(x, params["in_proj"]), 2, dim=-1)
     u, new_conv = _causal_conv(params, cfg, u,
@@ -121,22 +107,9 @@ def ssm_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     a = -torch.exp(params["A_log"])                            # (di, N)
     uf = u.float()
 
-    chunk = min(chunk, s)
-    sp = math.ceil(s / chunk) * chunk
-    # padded steps have delta = 0: exp(0 * A) = 1 and no input, so h is
-    # unchanged by them
-    pads = [F.pad(t, (0, 0, 0, sp - s)) for t in (delta, bmat, cmat, uf)]
     h = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
          if state is None else state["h"])
-    ys = []
-    for c0 in range(0, sp, chunk):
-        args = [t[:, c0:c0 + chunk] for t in pads]
-        if torch.is_grad_enabled():
-            h, y = checkpoint(_chunk, h, *args, a, use_reentrant=False)
-        else:
-            h, y = _chunk(h, *args, a)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :s]
+    y, h = scan(delta, uf, bmat, cmat, a, h, chunk)
     y = y + params["D"] * uf
     y = y * F.silu(z.float())
     out = F.linear(y.to(x.dtype), params["out_proj"])

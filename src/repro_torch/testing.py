@@ -142,3 +142,31 @@ def sharded_toy_flops(hidden: int, device: str = "cpu") -> dict:
     return {"hidden": hidden, "global_flops": whole.flops,
             "rank_flops": rank.flops, "useful_ratio": roof["useful_ratio"],
             "collectives": rank.collectives}
+
+
+def ssm_chunk_loop(delta, u, bmat, cmat, a, h0, chunk: int):
+    """The SSM scan without its operator: the chunk loop as ``ssm_apply``
+    ran it inline, each chunk under ``torch.utils.checkpoint`` while
+    gradients are on, so autograd differentiates the steps' own ops.  The
+    plain version that ``torch.ops.repro_torch.ssm_scan`` and its backward
+    are held to.  Returns (y, h_last)."""
+    import math
+
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.ssm_scan import _chunk
+
+    s = delta.shape[1]
+    chunk = min(chunk, s)
+    sp = math.ceil(s / chunk) * chunk
+    pads = [F.pad(t, (0, 0, 0, sp - s)) for t in (delta, bmat, cmat, u)]
+    h, ys = h0, []
+    for c0 in range(0, sp, chunk):
+        args = [t[:, c0:c0 + chunk] for t in pads]
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_chunk, h, *args, a, use_reentrant=False)
+        else:
+            h, y = _chunk(h, *args, a)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :s], h

@@ -59,6 +59,12 @@ eager forward through each routed model does (within 1e-5 of the max),
 capture once, and keep serving after in-place swaps; a federation on the
 card checkpointed at round 1 and resumed must reach the uninterrupted
 run's assignments and θ.
+
+The SSM scan operator (``repro_torch::ssm_scan``, which has no kernel: its
+body is the plain chunk loop on every device) on the card must give the
+chunk loop's ``y`` and ``h_last`` on the card bit for bit, at a ragged
+length and at the pretrain path's hymba-1.5b shape, and its backward
+within 1e-5 of the max of autograd through the loop.
 """
 import numpy as np
 import pytest
@@ -77,7 +83,7 @@ from repro_torch.kernels import segment_mean as tsm
 from repro_torch import sim as tsim
 from repro_torch.core import client as tclient
 from repro_torch.sim import clock as tclock
-from repro_torch.testing import cap_cpu_threads
+from repro_torch.testing import cap_cpu_threads, ssm_chunk_loop
 
 cap_cpu_threads()
 
@@ -1074,3 +1080,47 @@ def test_cuda_one_rank_sharded_round_is_dense(dtype):
     assert all(tfr.LAUNCHES[name] == before[name] + 1 for name in before)
     for f in dense._fields:
         assert torch.equal(getattr(dense, f), getattr(got, f)), f
+
+
+#: (B, S, d_inner, N): a ragged length (3 chunks and 8 steps) and the
+#: pretrain path's hymba-1.5b layer (batch 10 x 129 tokens)
+SSM_SHAPES = [(2, 200, 256, 16), (10, 129, 3200, 16)]
+
+
+def _ssm_inputs(b, s, di, n, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [np.logaddexp(0.0, rng.standard_normal((b, s, di))),
+              rng.standard_normal((b, s, di)), rng.standard_normal((b, s, n)),
+              rng.standard_normal((b, s, n)),
+              -np.tile(np.arange(1, n + 1), (di, 1)) / 10.0,
+              rng.standard_normal((b, di, n))]
+    return [torch.from_numpy(np.asarray(x, np.float32)).cuda()
+            for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", SSM_SHAPES)
+def test_cuda_ssm_scan_is_the_chunk_loop(b, s, di, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import ssm_scan
+
+    xs = _ssm_inputs(b, s, di, n)
+    with torch.no_grad():
+        want_y, want_h = ssm_chunk_loop(*xs, 64)
+        y, h, _ = torch.ops.repro_torch.ssm_scan(*xs, 64, False)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    rng = np.random.default_rng(1)
+    gy = torch.from_numpy(rng.standard_normal((b, s, di)).astype(
+        np.float32)).cuda()
+    gh = torch.from_numpy(rng.standard_normal((b, di, n)).astype(
+        np.float32)).cuda()
+    grads = []
+    for run in (ssm_chunk_loop, ssm_scan.scan):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        y, h = run(*leaves, 64)
+        assert torch.equal(y, want_y) and torch.equal(h, want_h)
+        grads.append(torch.autograd.grad((y, h), leaves, (gy, gh)))
+    for want, got in zip(*grads):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
