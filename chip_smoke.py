@@ -1634,7 +1634,7 @@ def resume_check(tmp: str) -> None:
     import torch
 
     from repro_torch.core import pytree
-    from repro_torch.core.server import Federation
+    from repro_torch.core.server import TIMING_FIELDS, Federation
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import zoo
@@ -1660,7 +1660,7 @@ def resume_check(tmp: str) -> None:
     h, h_res = full["history"].trace, res["history"].trace
     rows = all(getattr(h, f) is None
                or (getattr(h, f) == getattr(h_res, f)).all()
-               for f in h._fields if f not in ("local_s", "server_s"))
+               for f in h._fields if f not in TIMING_FIELDS)
     print(json.dumps({"launches": launches, "theta_err": theta_err,
                       "rows": bool(rows), "restore_s": restore_s[0],
                       "resume_s": resume_s, "test_acc": res["test_acc"],

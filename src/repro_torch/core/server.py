@@ -101,7 +101,13 @@ the dynamics block (churn, size entropy, intra radius, barycenter drift)
 and the seconds spent in the local phase and in the server step (each ended
 by a device synchronise; the server step is the strategy's round alone).
 No value is read back to the host between the start of a round's local
-phase and the end of its server step.
+phase and the end of its server step.  Each round marks four of its phases
+as ``record_function`` ranges, one after another, which a running
+``torch.profiler`` puts on its clock: ``fl.shuffle``, ``fl.server``,
+``fl.eval`` and ``fl.readback``.  The local phase is the gap from
+``fl.shuffle``'s end to ``fl.server``'s start; it gets no range of its own,
+since a profiler running a range over its tens of thousands of launches
+slows each of them.
 """
 from __future__ import annotations
 
@@ -112,6 +118,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch import sim as sim_mod
 from repro_torch.core import backends as bk
@@ -127,9 +134,10 @@ from repro_torch.obs import privacy as obs_privacy
 #: the port's stream tag of the DP noise (the reference splits that key off
 #: each client's own); the DP generator's seed is offset by it
 DP_STREAM = 0xD9A1
-#: trace fields the run ledger leaves out: host timings, which the
-#: reference's records do not have
-_UNLOGGED = ("local_s", "server_s")
+#: the trace's host timings: the run ledger leaves them out (the
+#: reference's records do not have them), and two runs of one seed agree on
+#: every other field bit for bit
+TIMING_FIELDS = ("local_s", "server_s")
 
 
 def bytes_per_param(w: torch.Tensor) -> int:
@@ -813,7 +821,8 @@ class Federation:
                 continue
             rec = {"schema": obs_ledger.OBS_SCHEMA,
                    "kind": obs_ledger.ROUND, "round": r}
-            rec.update({k: v for k, v in row.items() if k not in _UNLOGGED})
+            rec.update({k: v for k, v in row.items()
+                        if k not in TIMING_FIELDS})
             sink.emit(rec)
 
     def _save_ckpt(self, ckpt_dir: str, round_: int, gp, state,
@@ -988,7 +997,8 @@ class Federation:
             ids = None if cohorts is None else cohorts[r]
             adv = adv_fleet if ids is None or adv_fleet is None \
                 else adv_fleet[ids]
-            perms = self._shuffles(r, n_local, device, generator, draws)
+            with record_function("fl.shuffle"):
+                perms = self._shuffles(r, n_local, device, generator, draws)
             w, losses = self._local_phase(r, gp, client_data, perms, ids,
                                           adv, noise)
             agg, eff, mask = w, None, None
@@ -996,14 +1006,15 @@ class Federation:
                 agg, eff, mask = sub.step(r, w) if r else sub.census(w)
             _sync(device)
             t1 = time.perf_counter()
-            if r == 0:
-                state = strategy.init_state(
-                    w, perm=None if draws is None else draws.center_perm,
-                    generator=generator)
-            res = strategy.round(agg, state, mask=eff)
-            d = agg.shape[1]
-            theta = self._whole(res.theta, d)
-            _sync(device)
+            with record_function("fl.server"):
+                if r == 0:
+                    state = strategy.init_state(
+                        w, perm=None if draws is None else draws.center_perm,
+                        generator=generator)
+                res = strategy.round(agg, state, mask=eff)
+                d = agg.shape[1]
+                theta = self._whole(res.theta, d)
+                _sync(device)
             t2 = time.perf_counter()
             state = res.state
             gp = pytree.unflatten(theta, layout, gp)
@@ -1016,7 +1027,9 @@ class Federation:
                 m = mask.float()
                 scale = cfg.n_clients / torch.clamp(torch.sum(m), min=1.0)
                 loss = torch.mean(losses * (m * scale))
-            row = {"loss": loss, "acc": self.eval_fn(gp),
+            with record_function("fl.eval"):
+                acc = self.eval_fn(gp)
+            row = {"loss": loss, "acc": acc,
                    "assignment": assignment, "counts": res.metrics.counts,
                    "entropy": obs_metrics.size_entropy(res.metrics.counts),
                    "radius": self._radius_of(res.metrics, device),
@@ -1033,8 +1046,10 @@ class Federation:
             if ids is not None:
                 row["cohort"] = ids
             row.update(self._attack_row(res, adv))
-            rows.append({k: v.detach().cpu().numpy() if torch.is_tensor(v)
-                         else np.asarray(v) for k, v in row.items()})
+            with record_function("fl.readback"):
+                rows.append({k: v.detach().cpu().numpy()
+                             if torch.is_tensor(v) else np.asarray(v)
+                             for k, v in row.items()})
             if r == r_done + 1 and rows[0].keys() != rows[-1].keys():
                 raise ValueError(
                     f"checkpoint trace metrics {sorted(rows[0])} do not "

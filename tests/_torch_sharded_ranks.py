@@ -70,7 +70,8 @@ def run_federation(case: str, mesh=None, store_dir=None, ckpt_dir=None):
     and a checkpoint every round).  Returns θ and the trace's arrays."""
     from repro_torch import sim
     from repro_torch.core.client import ClientConfig
-    from repro_torch.core.server import Federation, FederationConfig
+    from repro_torch.core.server import (TIMING_FIELDS, Federation,
+                                         FederationConfig)
     from repro_torch.models.zoo import FLModel
 
     rng = np.random.default_rng(6)
@@ -105,7 +106,7 @@ def run_federation(case: str, mesh=None, store_dir=None, ckpt_dir=None):
                        generator=torch.Generator().manual_seed(10),
                        **run_kw)
     trace = {f: v for f, v in hist.trace._asdict().items()
-             if v is not None and f not in ("local_s", "server_s")}
+             if v is not None and f not in TIMING_FIELDS}
     return {"theta": gp["w"].numpy(), "trace": trace,
             "backend": getattr(fed.strategy.backend, "name", None)}
 

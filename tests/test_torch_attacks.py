@@ -39,7 +39,8 @@ from repro_torch import carry
 from repro_torch import sim as tsim
 from repro_torch.core import client as tclient
 from repro_torch.core.client import ClientConfig
-from repro_torch.core.server import Federation, FederationConfig
+from repro_torch.core.server import (TIMING_FIELDS, Federation,
+                                     FederationConfig)
 from repro_torch.models import zoo
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import privacy as tprivacy
@@ -174,7 +175,7 @@ def test_zero_adversaries_equal_the_clean_run_bit_for_bit(engine, sim_kw):
     for name in gp_c:
         assert torch.equal(gp_c[name], gp_a[name]), name
     for field in hist_c.trace._fields:
-        if field in ("local_s", "server_s"):
+        if field in TIMING_FIELDS:
             continue
         want = getattr(hist_c.trace, field)
         if want is not None:

@@ -30,7 +30,8 @@ from repro import checkpoint as jck
 from repro_torch import checkpoint
 from repro_torch import sim as tsim
 from repro_torch.core.client import ClientConfig
-from repro_torch.core.server import Federation, FederationConfig
+from repro_torch.core.server import (TIMING_FIELDS, Federation,
+                                     FederationConfig)
 from repro_torch.launch import train as ttrain
 from repro_torch.models import zoo
 from repro_torch.testing import cap_cpu_threads
@@ -248,7 +249,7 @@ def _assert_same_run(a, b):
     for f in h_a.trace._fields:
         x, y = getattr(h_a.trace, f), getattr(h_b.trace, f)
         assert (x is None) == (y is None), f
-        if x is not None and f not in ("local_s", "server_s"):
+        if x is not None and f not in TIMING_FIELDS:
             np.testing.assert_array_equal(x, y, err_msg=f)
 
 

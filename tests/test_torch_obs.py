@@ -35,7 +35,8 @@ from repro.obs import timeline as jtimeline
 from repro_torch import obs
 from repro_torch import sim as tsim
 from repro_torch.core.client import ClientConfig
-from repro_torch.core.server import Federation, FederationConfig
+from repro_torch.core.server import (TIMING_FIELDS, Federation,
+                                     FederationConfig)
 from repro_torch.launch import train as ttrain
 from repro_torch.models import zoo
 from repro_torch.obs import timeline
@@ -222,7 +223,7 @@ def test_sink_leaves_run_bit_identical(engine):
     assert torch.equal(gp0["w"], gp1["w"])
     for f in h0.trace._fields:
         a, b = getattr(h0.trace, f), getattr(h1.trace, f)
-        if a is not None and f not in ("local_s", "server_s"):
+        if a is not None and f not in TIMING_FIELDS:
             np.testing.assert_array_equal(a, b, err_msg=f)
 
 
