@@ -12,7 +12,8 @@ In order, it
      ``flash_attention`` kernel's registers a thread, shared memory a CTA and
      local memory (spills) a thread, and the registers and local memory of
      every route of the fused round, ``sq_dists_to_points``,
-     ``pairwise_sq_dists`` and ``segment_sum`` (any spill fails);
+     ``pairwise_sq_dists`` and ``segment_sum``, and of the CNN block's two
+     kernels (any spill fails);
   3. holds each kernel against its plain PyTorch version on the card: the
      fused-round kernels at the main path's shape (N = 10, K = 3,
      D = 582,026, f32, and in bf16), at a ragged shape with larger N and K,
@@ -52,11 +53,25 @@ In order, it
      at the pretrain path's and the serve path's shapes, against
      ``F.scaled_dot_product_attention``, and at S = 4096 with window 1024,
      each with the wrapper's host time beside the kernel's device time);
+  5a. the CNN's first block (``kernels/conv_pool.py``): its forward and
+     weight-gradient kernels at the local phase's vmapped step (C = 100
+     clients x B = 50 images) and the evaluation's call (1 x 10,000),
+     against the plain versions (the forward within 5e-6 of the max and
+     its argmax equal wherever the window's two largest values part by
+     more than 1e-5 of the max; the weight gradient within
+     5e-6 x sqrt(B / 50)) and timed beside their bounds (max of operations
+     over 67 TFLOP/s and bytes over 3.35 TB/s), the plain versions and
+     ATen's grouped ``F.conv2d`` + ReLU + ``max_pool2d`` and its autograd
+     backward to the weights as the library yardstick (timed only);
   6. runs ``repro_torch.launch.train --mode fl`` at its defaults with
      ``--rounds 3`` on the card, with the launch counters set to 0 just
      before: each fused-round kernel must have launched once per server step
-     (= rounds), no other kernel at all, and the final test accuracy must be
-     finite and above chance (0.1);
+     (= rounds), the CNN block's weight gradient once a vmapped SGD step
+     (rounds x epochs x batches a client, from the entry point's defaults)
+     and its forward once a step and once an evaluation (one a round), no other
+     kernel at all, and the final test accuracy must be finite and above
+     chance (0.1); the other training phases below count the CNN block's
+     kernels without holding them;
   6a. runs FedAvg, the paper's baseline, on the ``semi_async`` engine over
      the ``ideal`` fleet (``train --mode fl --method fedavg --engine
      semi_async --rounds 3``), counters set to 0 just before: no kernel
@@ -236,8 +251,9 @@ In order, it
       also at the serve path's encoder shape with the seamless phase's
       launches, and the fused round's two kernels also at the
       transformer_tiny path's bf16 (10, 3, 27,626) with its launches, and
-      at rank 1's (10, 3, 291,013) tile with phase k's launches there; a
-      line with none fails),
+      at rank 1's (10, 3, 291,013) tile with phase k's launches there, and
+      the CNN block's two kernels at phase 5a's shapes with the main path's
+      launches; a line with none fails),
       and last
       ``{"ok": true, "device": {...}}``.
 
@@ -394,7 +410,15 @@ REPLACES = {"center_sq_dists": "src/repro/kernels/fused_round.py:52",
             "segment_sum": "src/repro/kernels/segment_mean.py:26",
             "flash_attention": "src/repro/kernels/flash_attention.py:73"}
 _CSRC = "src/repro_torch/kernels/csrc/"
-SOURCES = {"center_sq_dists": _CSRC + "fused_round.cu",
+#: the CNN's first block as a kernel pair (``kernels/conv_pool.py``): it
+#: replaces no TPU kernel
+CNN_BLOCK = ("conv_relu_pool_fwd", "conv_relu_pool_wgrad")
+#: its shapes, (clients C, images a client B): the FL local phase's vmapped
+#: step of the benchmark's cell and the evaluation's one call
+CONV_POOL_SHAPES = ((100, 50), (1, 10_000))
+SOURCES = {"conv_relu_pool_fwd": _CSRC + "conv_pool.cu",
+           "conv_relu_pool_wgrad": _CSRC + "conv_pool.cu",
+           "center_sq_dists": _CSRC + "fused_round.cu",
            "fused_coalition_stats": _CSRC + "fused_round.cu",
            "pairwise_sq_dists": _CSRC + "pairwise_dist.cu",
            "sq_dists_to_points": _CSRC + "pairwise_dist.cu",
@@ -933,6 +957,101 @@ def time_kernels() -> dict:
     return out
 
 
+def time_conv_pool() -> dict:
+    """Phase 5a: the CNN block's two kernels at CONV_POOL_SHAPES against
+    their plain versions, and timed beside their bounds, the plain versions
+    and the library's yardstick: ATen's grouped ``F.conv2d`` + ReLU +
+    ``max_pool2d`` as the vmapped module ran them, and their autograd
+    backward to the weights (timed only; the port calls neither).  The
+    forward's pooled values within TOL of the max, its argmax equal to the
+    plain version's wherever the window's two largest values part by more
+    than 2 TOL of the max (the near-ties counted, and at least half the
+    windows clear); the weight gradient, from the plain version's argmax
+    and pooled values on both sides, within TOL x sqrt(B / 50) (it sums
+    B x 144 products a weight, whose round-off grows as the square root).
+    Bounds: the bytes of ``forward_cost`` / ``weight_grad_cost``; the
+    forward's operations theirs (4 x 25 FMAs a pooled value), the weight
+    gradient's 25 FMAs and the bias a pooled value, since only a window's
+    maximum carries gradient.  Returns the rows by (kernel name, C, B),
+    each with its max abs error under "err"."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_pool as cp
+
+    out = {}
+    for c, n in CONV_POOL_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(c * 100_003 + n)
+        x = torch.rand((c, n, 1, 28, 28), device="cuda", generator=gen)
+        w = torch.randn((c, 32, 1, 5, 5), device="cuda", generator=gen) * 0.2
+        b = torch.randn((c, 32), device="cuda", generator=gen) * 0.1
+        g = torch.randn((n, c, 32, 12, 12), device="cuda", generator=gen)
+        y, argmax = cp.kernel_forward(x, w, b)
+        want_y, want_arg = cp.plain_forward(x, w, b)
+        dw, db = cp.kernel_weight_grad(g, want_arg, want_y, x)
+        want_w, want_b = cp.plain_weight_grad(g, want_arg, want_y, x)
+        xg = x.transpose(0, 1).reshape(n, c, 28, 28)
+        pre = F.conv2d(xg, w.reshape(c * 32, 1, 5, 5), b.reshape(-1),
+                       groups=c)
+        win = F.relu(pre).reshape(n, c, 32, 12, 2, 12, 2).permute(
+            0, 1, 2, 3, 5, 4, 6).reshape(n, c, 32, 12, 12, 4)
+        top2 = win.topk(2, dim=-1).values
+        clear = top2[..., 0] - top2[..., 1] > \
+            2 * TOL * float(want_y.abs().max())
+        del pre, win, top2
+        torch.cuda.synchronize()
+        errs = {"conv_relu_pool_fwd": rel_err(y, want_y),
+                "conv_relu_pool_wgrad": max(rel_err(dw, want_w),
+                                            rel_err(db, want_b),
+                                            key=lambda e: e[1])}
+        differ = argmax != want_arg
+        flips, ties = int(differ[clear].sum()), int(differ[~clear].sum())
+        share = float(clear.float().mean())
+        print(f"conv_relu_pool C={c} B={n}: forward max error "
+              f"{errs['conv_relu_pool_fwd'][1]:.3e} of the max, argmax "
+              f"differs at {flips} of {int(clear.sum())} clear windows "
+              f"({share:.1%}) and {ties} near-ties, weight gradient "
+              f"{errs['conv_relu_pool_wgrad'][1]:.3e}")
+        tols = {"conv_relu_pool_fwd": TOL,
+                "conv_relu_pool_wgrad": TOL * max(1.0, math.sqrt(n / 50))}
+        for name, (_, rel) in errs.items():
+            if rel > tols[name]:
+                fail(f"{name} at C={c} B={n}: max error {rel:.3e} of the "
+                     f"max, over {tols[name]:.3e}")
+        if flips or share <= 0.5:
+            fail(f"conv_relu_pool_fwd at C={c} B={n}: the argmax differs "
+                 f"from the plain version's at {flips} clear windows "
+                 f"(clear: {share:.1%} of the windows)")
+        wl = w.reshape(c * 32, 1, 5, 5).clone().requires_grad_()
+        bl = b.reshape(-1).clone().requires_grad_()
+
+        def library_forward():
+            return F.max_pool2d(F.relu(F.conv2d(xg, wl, bl, groups=c)), 2)
+
+        lib_out, gl = library_forward(), g.reshape(n, c * 32, 12, 12)
+        fwd_ops, fwd_bytes, _ = cp.forward_cost(x, w, b)
+        _, wgrad_bytes, _ = cp.weight_grad_cost(g, argmax, y, x)
+        wgrad_ops = y.numel() * (cp.K * cp.K * 2 + 1)
+        shape = f"C={c} B={n} f32"
+        rows = {"conv_relu_pool_fwd": timed_row(
+            f"conv_relu_pool_fwd {shape}",
+            lambda: cp.kernel_forward(x, w, b),
+            lambda: cp.plain_forward(x, w, b), library_forward,
+            fwd_bytes, fwd_ops),
+            "conv_relu_pool_wgrad": timed_row(
+            f"conv_relu_pool_wgrad {shape}",
+            lambda: cp.kernel_weight_grad(g, argmax, y, x),
+            lambda: cp.plain_weight_grad(g, argmax, y, x),
+            lambda: torch.autograd.grad(lib_out, (wl, bl), gl,
+                                        retain_graph=True),
+            wgrad_bytes, wgrad_ops)}
+        for name, row in rows.items():
+            row["err"] = errs[name][0]
+            out[(name, c, n)] = row
+        del lib_out
+    return out
+
+
 def print_sweep_floor(n: int, k: int) -> None:
     """The fixed cost of a register sweep on the main path's grid: the
     full-width kernels at one step of the grid (D = 1024 columns a SM less
@@ -982,10 +1101,11 @@ def print_flash_attributes() -> None:
 def check_sweep_attributes() -> None:
     """The registers a thread and local memory (spills) of every route of
     the fused round's two passes, sq_dists_to_points (each W / points dtype
-    mix), pairwise_sq_dists and segment_sum, as the CUDA runtime reports
-    them; fails on any spill."""
+    mix), pairwise_sq_dists and segment_sum, and of the CNN block's two
+    kernels, as the CUDA runtime reports them; fails on any spill."""
     import torch
 
+    from repro_torch.kernels import conv_pool as cp
     from repro_torch.kernels import fused_round as fr
     from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import segment_mean as sm
@@ -1004,6 +1124,9 @@ def check_sweep_attributes() -> None:
     kernels += [(f"segment_sum {name} {str(dt)[6:]}",
                  lambda n=name, d=dt: sm.kernel_attributes(d, n))
                 for name in sm.ROUTES for dt in dtypes]
+    kernels += [(f"conv_relu_pool_{which}",
+                 lambda w=which: cp.kernel_attributes(w))
+                for which in ("fwd", "wgrad")]
     for label, attributes in kernels:
         a = attributes()
         print(f"{label}: {a['regs']} registers a thread, {a['local_bytes']} "
@@ -1146,8 +1269,11 @@ def report_rounds(out: dict, label: str, wall: float, launches: dict,
 
 def expect_launches(label: str, launches: dict, want: dict) -> None:
     """Fail unless each kernel launched as often as ``want`` says (0 for a
-    kernel it does not name)."""
+    kernel it does not name; the CNN block's kernels, which launch wherever
+    the CNN trains or evaluates, only where ``want`` names them)."""
     for name, count in launches.items():
+        if name in CNN_BLOCK and name not in want:
+            continue
         if count != want.get(name, 0):
             fail(f"{label}: {name} launched {count} times, expected "
                  f"{want.get(name, 0)}")
@@ -1155,7 +1281,9 @@ def expect_launches(label: str, launches: dict, want: dict) -> None:
 
 def run_main_path() -> dict:
     """Phase 6: the port's training entry point, counters reset just before:
-    the fused round's two kernels once per server step, no other kernel."""
+    the fused round's two kernels once per server step, the CNN block's
+    weight gradient once a vmapped SGD step and its forward once a step and
+    once an evaluation (one a round), no other kernel."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -1168,7 +1296,35 @@ def run_main_path() -> dict:
     report_rounds(out, label, wall, launches, ROUNDS)
     expect_launches(label, launches, {"center_sq_dists": ROUNDS,
                                       "fused_coalition_stats": ROUNDS})
+    steps = main_path_steps()
+    want = {"conv_relu_pool_wgrad": steps,
+            "conv_relu_pool_fwd": steps + ROUNDS}
+    if any(launches[name] != count for name, count in want.items()):
+        fail(f"{label}: the CNN block launched {launches}; expected {want} "
+             f"(the weight gradient once a vmapped step, the forward once a "
+             f"step and once a round)")
     return launches, out["server_s"]
+
+
+def main_path_steps() -> int:
+    """The vmapped SGD steps of phase 6's run, from the training entry
+    point's defaults: rounds x epochs x batches a client (a last, short
+    batch too), each client holding the iid partition's equal share of the
+    training set (MNIST's if its files are there, else ``--n-train``)."""
+    import numpy as np
+
+    from repro_torch.data import partition, synthetic
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(["--mode", "fl", "--rounds",
+                                            str(ROUNDS)])
+    if args.regime != "iid":
+        fail(f"phase 6 counts steps on the iid partition, not "
+             f"{args.regime}")
+    real = synthetic.mnist_idx()
+    n_train = args.n_train if real is None else len(real[0][1])
+    n_local = partition.iid(np.arange(n_train) % 10, args.clients).shape[1]
+    return args.rounds * args.local_epochs * -(-n_local // args.batch_size)
 
 
 def run_fedavg_path() -> None:
@@ -3169,6 +3325,7 @@ def main() -> int:
     flash_errs = check_flash()
     composed_routes = check_rounds()
     times = time_kernels()
+    conv_rows = time_conv_pool()
     flash_rows = time_flash()
     times["flash_attention"] = flash_rows[FLASH_PATH]
     launches, main_server_s = run_main_path()
@@ -3291,6 +3448,9 @@ def main() -> int:
                   flash_rows[FLASH_ENCODER], flash_errs[FLASH_ENCODER],
                   (f"serve path ({encoder_arch} --flash)",
                    serves[encoder_arch]["launches"])))
+    lines += [(name, f"C={c} B={b} f32", row, row["err"],
+               ("main path", launches))
+              for (name, c, b), row in conv_rows.items()]
     kernels = []
     for name, shape, row, err, (path, count) in lines:
         if isinstance(count, dict):
@@ -3300,7 +3460,8 @@ def main() -> int:
         kernels.append({
             "name": name, "shape": shape, "route": "cuda",
             "kernel_route": row.get("kernel_route"),
-            "source": SOURCES[name], "replaces": REPLACES[name],
+            "source": SOURCES[name],
+            "replaces": REPLACES.get(name, "none (ATen's depthwise conv1)"),
             "launches": count, "launches_on": path, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

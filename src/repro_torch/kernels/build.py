@@ -26,7 +26,8 @@ BUILD_DIR = HERE / "_build"
 
 #: the CUDA sources, relative to this directory, and the headers they share
 SOURCES = ("csrc/fused_round.cu", "csrc/pairwise_dist.cu",
-           "csrc/segment_mean.cu", "csrc/flash_attention.cu")
+           "csrc/segment_mean.cu", "csrc/flash_attention.cu",
+           "csrc/conv_pool.cu")
 HEADERS = ("csrc/common.cuh", "csrc/reg_sweep.cuh")
 
 FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,6 +1,6 @@
 // Code shared by the port's CUDA sources (fused_round.cu, pairwise_dist.cu,
-// segment_mean.cu, flash_attention.cu).  Each source is a shared library of its own and compiles
-// its own copy of what is here.
+// segment_mean.cu, flash_attention.cu, conv_pool.cu).  Each source is a
+// shared library of its own and compiles its own copy of what is here.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,10 +12,11 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import is_traceable_wrapper_subclass
 
-from repro_torch.kernels import (flash_attention as _fa, fused_round,
-                                 pairwise_dist, ref, segment_mean)
+from repro_torch.kernels import (conv_pool, flash_attention as _fa,
+                                 fused_round, pairwise_dist, ref,
+                                 segment_mean)
 
-_WRAPPERS = (fused_round, pairwise_dist, segment_mean, _fa)
+_WRAPPERS = (fused_round, pairwise_dist, segment_mean, _fa, conv_pool)
 
 
 def reset_launch_counts() -> None:

@@ -20,7 +20,12 @@ Per rank it counts:
               the port's registered operators (the SSM scan and its
               backward, :mod:`repro_torch.models.ssm_scan`) by their own
               cost functions, which count their bodies' eager ops (FLOPs,
-              bytes and the live bytes inside the op);
+              bytes and the live bytes inside the op), and the CNN block's
+              forward and weight gradient
+              (:mod:`repro_torch.kernels.conv_pool`) by their bodies'
+              FLOPs and their kernels' bytes, so that a fake trace (the
+              plain bodies) and a real run on the card (the kernels)
+              count alike;
   bytes       the sum of each aten op's input and output bytes, views
               free: the traffic of an unfused eager program, the
               counterpart of XLA's "bytes accessed";
@@ -55,6 +60,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import conv_flop_count, flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.kernels import conv_pool
 from repro_torch.models import ssm_scan
 
 try:
@@ -186,10 +192,15 @@ def _conv_backward_flops(grad_out, x, w, _bias, _stride, _padding,
 
 
 #: the port's registered operators -> their bodies' (FLOPs, bytes, peak
-#: bytes over the inputs) as the counter would count the bodies' own ops
+#: bytes over the inputs) as the counter would count the bodies' own ops;
+#: the CNN block's two operators with the bytes their kernels move
 BODY_COSTS = {torch.ops.repro_torch.ssm_scan.default: ssm_scan.forward_cost,
               torch.ops.repro_torch.ssm_scan_backward.default:
-                  ssm_scan.backward_cost}
+                  ssm_scan.backward_cost,
+              torch.ops.repro_torch.conv_relu_pool_fwd.default:
+                  conv_pool.forward_cost,
+              torch.ops.repro_torch.conv_relu_pool_wgrad.default:
+                  conv_pool.weight_grad_cost}
 
 
 def op_flops(func, args, kwargs, out) -> int:

@@ -8,6 +8,11 @@ fc2: 10 (class logits)
 Valid padding: 28 -> 24 -> 12 -> 8 -> 4, so the flattened feature is
 4*4*64 = 1024 and D = 582,026.
 
+The first block (conv1, its ReLU and pool) is one client-batched kernel
+pair on the card, :func:`repro_torch.kernels.conv_pool.conv_relu_pool`
+(differentiable in the weights only: the input is data); conv2 onwards are
+torch's.
+
 Inputs are NHWC ``(B, 28, 28, 1)`` as in the reference; the module computes
 in NCHW and permutes back to NHWC before the flatten, so ``fc1`` sees the
 features in the reference's (h, w, c) order and carried weights give the
@@ -23,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+
+from repro_torch.kernels import conv_pool
 
 
 class CNNConfig(NamedTuple):
@@ -72,7 +79,7 @@ class CNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 28, 28, 1) NHWC -> logits (B, 10)."""
         h = x.permute(0, 3, 1, 2)
-        h = F.max_pool2d(F.relu(self.conv1(h)), 2)
+        h = conv_pool.conv_relu_pool(h, self.conv1.weight, self.conv1.bias)
         h = F.max_pool2d(F.relu(self.conv2(h)), 2)
         h = h.permute(0, 2, 3, 1).flatten(1)        # NHWC flatten
         h = F.relu(self.fc1(h))

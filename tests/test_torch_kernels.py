@@ -26,6 +26,7 @@ from repro.kernels import ref as jref
 from repro.kernels import segment_mean as jsm
 from repro_torch.core import distance as tdist
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import conv_pool as tcp
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_round as tfr
 from repro_torch.kernels import pairwise_dist as tpd
@@ -154,10 +155,13 @@ def test_cpu_tensors_take_the_plain_version():
     ops.segment_sum(mt, wt)
     q = torch.from_numpy(w[:4, :256].reshape(1, 4, 4, 64))
     ops.flash_attention(q, q[:, :2], q[:, :2])
+    tcp.conv_relu_pool(torch.rand(2, 1, 28, 28), torch.rand(32, 1, 5, 5),
+                       torch.rand(32))
     assert ops.launch_counts() == before
     assert set(before) == {"center_sq_dists", "fused_coalition_stats",
                            "pairwise_sq_dists", "sq_dists_to_points",
-                           "segment_sum", "flash_attention"}
+                           "segment_sum", "flash_attention",
+                           "conv_relu_pool_fwd", "conv_relu_pool_wgrad"}
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -177,12 +181,19 @@ def test_wrappers_refuse_cpu_tensors():
     q = torch.from_numpy(w[:4, :256].reshape(1, 4, 4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, q, q)
+    x = torch.rand(1, 2, 1, 28, 28)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.kernel_forward(x, torch.rand(1, 32, 1, 5, 5), torch.rand(1, 32))
+    g = torch.zeros((2, 1, 32, 12, 12))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.kernel_weight_grad(g, g.to(torch.uint8), g, x)
 
 
 def test_reset_launch_counts_zeroes_every_kernel():
     tpd.LAUNCHES["pairwise_sq_dists"] += 1
     tsm.LAUNCHES["segment_sum"] += 1
     tfa.LAUNCHES["flash_attention"] += 1
+    tcp.LAUNCHES["conv_relu_pool_wgrad"] += 1
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
